@@ -1,4 +1,4 @@
-"""The CUDA match kernel against its plain PyTorch version, on the card.
+"""The CUDA match kernels against their plain PyTorch version, on the card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine with only
 PyTorch and the CUDA toolkit:
@@ -6,9 +6,10 @@ PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because tests/conftest.py configures JAX). Without a card every test
-here skips. Binary +-1 descriptors give integer similarities: nn12, nn21 and top2 must
-be exactly equal. Float unit vectors sum fp32 products in another order: top2 within
-1e-5, nn12 equal wherever best - second > 1e-4.
+here skips. bf16 cases go through the wgmma kernel (``launch_wgmma``), fp32 cases
+through the SIMT kernel (``launch_simt``). Binary +-1 descriptors give integer
+similarities: nn12, nn21 and top2 must be exactly equal. Float unit vectors sum fp32
+products in another order: top2 within 1e-5, nn12 equal wherever best - second > 1e-4.
 """
 
 import numpy as np
@@ -43,16 +44,33 @@ CASES = {
     "binary_2048x2048x256": (lambda r: _binary(r, 2048, 2048), True),
     "binary_ragged_77x1001x256": (lambda r: _binary(r, 77, 1001), True),
     "binary_2048x20000x256": (lambda r: _binary(r, 2048, 20000), True),
+    "binary_1x1x256": (lambda r: _binary(r, 1, 1), True),
+    "binary_63x65x256": (lambda r: _binary(r, 63, 65), True),
+    "binary_129x257x256": (lambda r: _binary(r, 129, 257), True),
+    "binary_300x280x100": (lambda r: _binary(r, 300, 280, 100), True),
+    "binary_500x600x64": (lambda r: _binary(r, 500, 600, 64), True),
     "float_1000x1200x128": (lambda r: _float(r, 1000, 1200, 128), False),
     "float_300x280x100": (lambda r: _float(r, 300, 280, 100), False),
     "float_as_bf16_500x600x64": (lambda r: _float(r, 500, 600, 64), True),
 }
 
 
+def _check(got, ref, exact):
+    (nn12, top2, nn21), (r12, rtop2, r21) = ([x.cpu().numpy() for x in t] for t in (got, ref))
+    if exact:
+        np.testing.assert_array_equal(nn12, r12)
+        np.testing.assert_array_equal(nn21, r21)
+        np.testing.assert_array_equal(top2, rtop2)
+    else:
+        np.testing.assert_allclose(top2, rtop2, rtol=1e-5, atol=1e-5)
+        sure = rtop2[:, 0] - rtop2[:, 1] > 1e-4
+        np.testing.assert_array_equal(nn12[sure], r12[sure])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the match kernel has no CPU build")
+        pytest.skip("needs an NVIDIA GPU: the match kernels have no CPU build")
     return torch.device("cuda")
 
 
@@ -62,20 +80,43 @@ def test_kernel_vs_plain(cuda_device, case):
     make, bf16 = CASES[case]
     a, b, va, vb = (torch.from_numpy(x).to(cuda_device)
                     for x in make(np.random.default_rng(71)))
-    before = match.top2_mutual.launches
+    before = (match.launch_wgmma.launches, match.launch_simt.launches)
     got = match.top2_mutual(a, b, va, vb, bf16=bf16)
     torch.cuda.synchronize()
-    assert match.top2_mutual.launches == before + 1
+    after = (match.launch_wgmma.launches, match.launch_simt.launches)
+    assert after == ((before[0] + 1, before[1]) if bf16 else (before[0], before[1] + 1))
     ref = match.top2_mutual_plain(a, b, va, vb, bf16=bf16)
-    (nn12, top2, nn21), (r12, rtop2, r21) = ([x.cpu().numpy() for x in t] for t in (got, ref))
-    if bf16 and "binary" in case:
-        np.testing.assert_array_equal(nn12, r12)
-        np.testing.assert_array_equal(nn21, r21)
-        np.testing.assert_array_equal(top2, rtop2)
-    else:
-        np.testing.assert_allclose(top2, rtop2, rtol=1e-5, atol=1e-5)
-        sure = rtop2[:, 0] - rtop2[:, 1] > 1e-4
-        np.testing.assert_array_equal(nn12[sure], r12[sure])
+    _check(got, ref, exact=bf16 and "binary" in case)
+
+
+@pytest.mark.cuda
+def test_repeated_calls_reset_scratch(cuda_device):
+    """The wgmma kernel resets its cached column keys and tickets itself: calls in a
+    row on new inputs, growing and shrinking, are each exact."""
+    rng = np.random.default_rng(73)
+    for na, nb, d in ((2048, 2048, 256), (2048, 2048, 256), (300, 5000, 256),
+                      (129, 257, 64), (2048, 2048, 256)):
+        a, b, va, vb = (torch.from_numpy(x).to(cuda_device) for x in _binary(rng, na, nb, d))
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        got = match.top2_mutual(a, b, va, vb, bf16=True)
+        torch.cuda.synchronize()
+        _check(got, match.top2_mutual_plain(a, b, va, vb, bf16=True), exact=True)
+
+
+@pytest.mark.cuda
+def test_wgmma_takes_misaligned_views(cuda_device):
+    """TMA needs 16-byte aligned operands: a view that starts 2 bytes into its storage
+    is copied by the wrapper, and the result is still exact."""
+    rng = np.random.default_rng(74)
+    a, b, va, vb = (torch.from_numpy(x).to(cuda_device) for x in _binary(rng, 300, 400))
+    flat = torch.zeros(a.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    a_view = flat[1:].view(a.shape)
+    a_view.copy_(a)
+    assert a_view.data_ptr() % 16 != 0
+    b = b.to(torch.bfloat16)
+    got = match.top2_mutual(a_view, b, va, vb, bf16=True)
+    torch.cuda.synchronize()
+    _check(got, match.top2_mutual_plain(a_view, b, va, vb, bf16=True), exact=True)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@
 ``top2_mutual_plain`` is held against the Pallas kernel run in interpret mode and
 against the JAX XLA matchers. Binary +-1 descriptors give integer similarities, so
 indices and values are exact there; float unit vectors carry rtol = atol = 1e-5 on the
-similarities (fp32 products summed in another order). The CUDA kernel itself is held
-against the plain version in tests/test_torch_cuda.py, which needs a card.
+similarities (fp32 products summed in another order). The CUDA kernels themselves are
+held against the plain version in tests/test_torch_cuda.py, which needs a card; here the
+wrapper's grid arithmetic and the column-key order the kernels rely on are checked.
 """
 
 import jax.numpy as jnp
@@ -149,9 +150,76 @@ def test_wrapper_rejects_bad_operands():
 
 def test_cpu_tensors_take_plain_version_without_launch():
     a, b, va, vb = _binary_descs(np.random.default_rng(46), 64, 80, dup=False)
-    before = tmatch.top2_mutual.launches
-    got = tmatch.top2_mutual(*_t(a, b, va, vb), bf16=True)
-    ref = tmatch.top2_mutual_plain(*_t(a, b, va, vb), bf16=True)
-    for g, r in zip(got, ref):
-        np.testing.assert_array_equal(g.numpy(), r.numpy())
-    assert tmatch.top2_mutual.launches == before
+    before = (tmatch.launch_wgmma.launches, tmatch.launch_simt.launches)
+    for bf16 in (True, False):
+        got = tmatch.top2_mutual(*_t(a, b, va, vb), bf16=bf16)
+        ref = tmatch.top2_mutual_plain(*_t(a, b, va, vb), bf16=bf16)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+    assert (tmatch.launch_wgmma.launches, tmatch.launch_simt.launches) == before
+
+
+GRID_SHAPES = [(2048, 2048, 256, 132), (1, 1, 256, 132), (63, 65, 100, 132),
+               (129, 257, 64, 132), (2048, 20000, 256, 132), (5000, 300, 7, 114),
+               (77, 1001, 256, 8)]
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("na,nb,d,sms", GRID_SHAPES)
+def test_match_grid_covers_every_column_once(na, nb, d, sms, bf16):
+    """The kernels' cut of a call: each column in exactly one split, no split empty,
+    every row in a row tile, the blocks within what fills the SMs, and a bf16 width
+    padded to TMA's 16-byte stride rule."""
+    g = tmatch.match_grid(na, nb, d, bf16, sms)
+    covered = np.zeros(nb, np.int64)
+    for s in range(g.splits):
+        lo, hi = s * g.cols_per_split, min(nb, (s + 1) * g.cols_per_split)
+        assert hi > lo
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert (g.n_row_tiles - 1) * g.bm < na <= g.n_row_tiles * g.bm
+    assert g.n_col_tiles == -(-nb // g.bn) and g.cols_per_split % g.bn == 0
+    per_sm = 1 if bf16 else 2
+    assert g.n_row_tiles * g.splits <= max(per_sm * sms, g.n_row_tiles)
+    if bf16:
+        assert g.bm == g.bn == 128
+        assert g.d_pad % 8 == 0 and d <= g.d_pad < d + 8 and (g.d_pad * 2) % 16 == 0
+    else:
+        assert g.bm == g.bn == 64 and g.d_pad == d
+
+
+def test_match_grid_main_path_shape():
+    """2048 x 2048 x 256 on 132 SMs: 16 row tiles x 8 splits of 2 column tiles."""
+    g = tmatch.match_grid(2048, 2048, 256, True, 132)
+    assert (g.n_row_tiles, g.splits, g.tiles_per_split, g.d_pad) == (16, 8, 2, 256)
+
+
+def test_col_key_orders_values_then_lower_rows():
+    """The packed key the kernels reduce with atomicMax: value order first (-1e30 the
+    least, -0 equal to +0), then the lower row; no masked (-1e30) key beats the initial
+    one, which decodes to row 0 and fits the int64 scratch."""
+    key = tmatch._col_key
+    init = tmatch._col_key_init()
+    assert init == key(-1e30, 0) and init < 2**63
+    assert 0xFFFFFFFF - (init & 0xFFFFFFFF) == 0
+    vals = [-1e30, -256.0, -1.5, -1e-3, 0.0, 1e-3, 1.0, 255.0, 256.0]
+    keys = [key(v, 7) for v in vals]
+    assert keys == sorted(keys) and len(set(keys)) == len(keys)
+    assert key(-0.0, 7) == key(0.0, 7)
+    assert key(3.0, 5) > key(3.0, 6) > key(2.0, 0)
+    assert all(key(-1e30, r) <= init for r in (0, 1, 2047, 2**31 - 1))
+    assert key(-256.0, 2**31 - 1) > init
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_col_key_max_is_xla_argmax(seed):
+    """Over a column with ties, -1e30 masks and signed zeros, the largest key decodes
+    to torch.argmax's row (the first of the largest values), as the kernels rely on."""
+    rng = np.random.default_rng(seed)
+    col = rng.integers(-3, 4, size=200).astype(np.float32)
+    col[rng.uniform(size=200) < 0.3] = -1e30
+    col[rng.uniform(size=200) < 0.1] = -0.0
+    if seed == 3:
+        col[:] = -1e30                         # all-invalid: row 0
+    best = max(tmatch._col_key(float(v), r) for r, v in enumerate(col))
+    assert 0xFFFFFFFF - (best & 0xFFFFFFFF) == int(torch.argmax(torch.from_numpy(col)))

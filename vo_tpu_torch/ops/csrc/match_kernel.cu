@@ -1,19 +1,19 @@
-// Fused descriptor matcher for Hopper (sm_90a): similarity GEMM + row top-2 + column
-// argmax in one pass, with a plain C interface loaded through ctypes
-// (vo_tpu_torch/ops/match.py builds it with nvcc at first use).
+// Fused descriptor matcher for fp32 operands on the CUDA cores (sm_90a): similarity
+// GEMM + row top-2 + column argmax in one pass, with a plain C interface loaded
+// through ctypes (vo_tpu_torch/ops/match.py builds it with nvcc at first use).
+// bf16 operands take the tensor-core kernel in match_wgmma.cu instead.
 //
 // Replaces the TPU kernel vo_tpu/ops/pallas_match.py::_match_kernel (pallas_call in
-// top2_mutual_pallas). Same outputs and tie rules:
+// top2_mutual_pallas) in its float mode (R2D2 / SIFT descriptors). Same outputs and
+// tie rules:
 //   nn12[i]   = argmax_j S[i, j]         (lowest j among equal values)
 //   top2[i]   = [S[i, nn12[i]], max_{j != nn12[i]} S[i, j]]  (a tied duplicate counts)
 //   nn21[j]   = argmax_i S[i, j]         (lowest i among equal values)
 // with S = A B^T accumulated in fp32 and invalid rows/columns set to -1e30.
 //
-// What bounds it on an H100: at the main-path shape (2048 x 2048 x 256, +-1 bf16) the
-// work is 2.1 GFLOP against ~2 MiB of operands, ~1000 FLOP per byte, so it is bound
-// by arithmetic, not memory. This first version does the products with fp32 FMAs on
-// the CUDA cores (67 TFLOP/s peak), so it sits well above the bf16 tensor-core bound;
-// wgmma is later work.
+// What bounds it on an H100: the products are fp32 FMAs on the CUDA cores (67 TFLOP/s
+// peak). TF32 tensor cores would be faster but keep only ~3 decimal digits, beyond the
+// 1e-5 that the float matchers are held to, so this kernel stays on the CUDA cores.
 //
 // Design. The TPU kernel kept the full B resident in VMEM and carried the column
 // reduction in scratch across a sequential grid. CUDA blocks run concurrently, so:
@@ -22,54 +22,29 @@
 //     D axis in 32-wide chunks (no cap on Nb: B is never resident as a whole);
 //   * each thread keeps a running (best, idx, second) per row over its columns; the
 //     16 threads of a row merge with warp shuffles, and the splits of a row merge in
-//     the finalize kernel, both with sec = max(sec1, sec2, min(best1, best2)) and the
-//     lower index winning an equal best -- the merge at pallas_match.py:82-85;
-//   * the column argmax is an atomicMax on a packed uint64 per column: the high 32
-//     bits order the fp32 similarity, the low 32 bits are 0xFFFFFFFF - row, so equal
-//     values go to the lowest row. Blocks first reduce within shared memory, then
-//     issue one global atomic per column. The wrapper fills the keys with the key of
-//     (-1e30, row 0), which is XLA's argmax of an all-invalid column.
+//     the finalize kernel (match_common.cuh: scan, merge);
+//   * the column argmax is an atomicMax on the packed key of match_common.cuh. Blocks
+//     first reduce within shared memory, then do one global atomic per column. The
+//     wrapper fills the keys with col_key(-1e30, 0) before the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "match_common.cuh"
+
 namespace {
+
+using vo_match::col_key;
+using vo_match::NEG;
+using vo_match::Top2;
 
 constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int BK = 32;
 constexpr int THREADS = 256;
-constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ unsigned long long col_key(float v, int row) {
-  unsigned int u = __float_as_uint(v + 0.0f);  // -0 -> +0, so equal values tie
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<unsigned long long>(u) << 32) |
-         static_cast<unsigned long long>(0xFFFFFFFFu - static_cast<unsigned int>(row));
-}
-
-struct Top2 {
-  float best;
-  float sec;
-  int idx;
-};
-
-__device__ __forceinline__ void merge(Top2& a, float b_best, float b_sec, int b_idx) {
-  const float sec = fmaxf(fmaxf(a.sec, b_sec), fminf(a.best, b_best));
-  if (b_best > a.best || (b_best == a.best && b_idx < a.idx)) {
-    a.best = b_best;
-    a.idx = b_idx;
-  }
-  a.sec = sec;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-top2_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
+top2_tile_kernel(const float* __restrict__ A, const float* __restrict__ B,
                  const uint8_t* __restrict__ va, const uint8_t* __restrict__ vb,
                  int na, int nb, int d, int cols_per_split,
                  float* __restrict__ part_best, float* __restrict__ part_sec,
@@ -112,8 +87,8 @@ top2_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
         const int gk = k0 + k;
         const int ga = row0 + r;
         const int gb = col0 + r;
-        As[k][r] = (ga < na && gk < d) ? to_f32(A[static_cast<size_t>(ga) * d + gk]) : 0.0f;
-        Bs[k][r] = (gb < col_end && gk < d) ? to_f32(B[static_cast<size_t>(gb) * d + gk]) : 0.0f;
+        As[k][r] = (ga < na && gk < d) ? A[static_cast<size_t>(ga) * d + gk] : 0.0f;
+        Bs[k][r] = (gb < col_end && gk < d) ? B[static_cast<size_t>(gb) * d + gk] : 0.0f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -141,15 +116,7 @@ top2_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float v = (rv[i] && cv) ? acc[i][j] : NEG;
-        // Row update in increasing column order: a later equal value is a duplicate
-        // (second), never the argmax.
-        if (v > st[i].best) {
-          st[i].sec = fmaxf(st[i].sec, st[i].best);
-          st[i].best = v;
-          st[i].idx = c;
-        } else {
-          st[i].sec = fmaxf(st[i].sec, v);
-        }
+        vo_match::scan(st[i], v, c);
         if (v > cbest) {  // rows increase with i: first of equal values wins
           cbest = v;
           crow = row0 + ty + 16 * i;
@@ -171,7 +138,7 @@ top2_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
       const float ob = __shfl_xor_sync(0xffffffffu, st[i].best, off);
       const float os = __shfl_xor_sync(0xffffffffu, st[i].sec, off);
       const int oi = __shfl_xor_sync(0xffffffffu, st[i].idx, off);
-      merge(st[i], ob, os, oi);
+      vo_match::merge(st[i], ob, os, oi);
     }
     const int r = row0 + ty + 16 * i;
     if (tx == 0 && r < na) {
@@ -195,37 +162,26 @@ __global__ void finalize_kernel(int na, int nb, int splits,
     Top2 s{part_best[i], part_sec[i], part_idx[i]};
     for (int p = 1; p < splits; ++p) {
       const size_t o = static_cast<size_t>(p) * na + i;
-      merge(s, part_best[o], part_sec[o], part_idx[o]);
+      vo_match::merge(s, part_best[o], part_sec[o], part_idx[o]);
     }
     nn12[i] = s.idx;
     top2[2 * i] = s.best;
     top2[2 * i + 1] = s.sec;
   }
-  if (i < nb) {
-    const unsigned int low = static_cast<unsigned int>(colkey[i] & 0xFFFFFFFFull);
-    nn21[i] = static_cast<int>(0xFFFFFFFFu - low);
-  }
+  if (i < nb) nn21[i] = vo_match::col_key_row(colkey[i]);
 }
 
 }  // namespace
 
-extern "C" int vo_top2_mutual(const void* A, const void* B, const uint8_t* va,
-                              const uint8_t* vb, int na, int nb, int d, int is_bf16,
-                              int splits, int cols_per_split, float* part_best,
-                              float* part_sec, int* part_idx,
-                              unsigned long long* colkey, int* nn12, float* top2,
-                              int* nn21, void* stream) {
+extern "C" int vo_top2_mutual_simt(const float* A, const float* B, const uint8_t* va,
+                                   const uint8_t* vb, int na, int nb, int d, int splits,
+                                   int cols_per_split, float* part_best, float* part_sec,
+                                   int* part_idx, unsigned long long* colkey, int* nn12,
+                                   float* top2, int* nn21, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((na + BM - 1) / BM, splits);
-  if (is_bf16) {
-    top2_tile_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B), va, vb,
-        na, nb, d, cols_per_split, part_best, part_sec, part_idx, colkey);
-  } else {
-    top2_tile_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(A), static_cast<const float*>(B), va, vb, na, nb, d,
-        cols_per_split, part_best, part_sec, part_idx, colkey);
-  }
+  top2_tile_kernel<<<grid, THREADS, 0, s>>>(A, B, va, vb, na, nb, d, cols_per_split,
+                                            part_best, part_sec, part_idx, colkey);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = na > nb ? na : nb;

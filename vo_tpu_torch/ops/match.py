@@ -3,32 +3,36 @@
 ``top2_mutual`` returns (nn12, top2_sim, nn21), everything the ratio and mutual-NN
 matchers need, without materialising the (Na, Nb) similarity matrix:
 - on a CPU tensor it runs ``top2_mutual_plain``, the plain PyTorch version;
-- on a CUDA tensor it launches the hand-written kernel in ``csrc/match_kernel.cu``
-  (built with nvcc at first use, bound through ctypes) or raises. There is no
-  fallback from the card to the plain version.
+- on a CUDA tensor it launches one of two hand-written kernels (built with nvcc at
+  first use, bound through ctypes) or raises. bf16 operands go to the tensor-core
+  kernel in ``csrc/match_wgmma.cu`` (``launch_wgmma``), fp32 operands to the CUDA-core
+  kernel in ``csrc/match_kernel.cu`` (``launch_simt``). There is no fallback from the
+  card to the plain version or from one kernel to the other.
 
-``top2_mutual.launches`` counts kernel launches, so a run can show that its matches
-went through the kernel.
+``launch_wgmma.launches`` and ``launch_simt.launches`` count kernel launches, so a run
+can show that its matches went through a kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import struct
 import subprocess
 import time
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from vo_tpu_torch.matching.matchers import MatchResult, _unit_dist
 
 _NEG = -1e30
-_SRC = os.path.join(os.path.dirname(__file__), "csrc", "match_kernel.cu")
+_CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-_BM, _BN = 64, 64          # row and column tile of the kernel
 
 
 def _nvcc() -> str:
@@ -37,24 +41,29 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernel")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
 def build_match_kernel() -> tuple[str, float, str]:
-    """Compile the kernel for sm_90a into the package's build directory.
+    """Compile both match kernels for sm_90a into one library in the build directory.
 
-    Returns (library path, seconds spent, compiler output). A library built from the
-    same source is reused.
+    Returns (library path, seconds spent, compiler output with ptxas's register and
+    spill lines). A library built from the same sources (every file of ``csrc/``) is
+    reused.
     """
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:12]
-    lib = os.path.join(_BUILD_DIR, f"libvo_match_{tag}.so")
+    files = sorted(glob.glob(os.path.join(_CSRC, "*.cu*")))
+    digest = hashlib.sha256()
+    for path in files:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    lib = os.path.join(_BUILD_DIR, f"libvo_match_{digest.hexdigest()[:12]}.so")
     if os.path.exists(lib):
         return lib, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC]
+           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
+           *(f for f in files if f.endswith(".cu"))]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -66,23 +75,70 @@ def build_match_kernel() -> tuple[str, float, str]:
 _lib = None
 
 
+def load_library(path: str) -> ctypes.CDLL:
+    """A built library with the argument types of both entry points set."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vo_top2_mutual_simt.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.vo_top2_mutual_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                         p, p, p, p, p, p, p, p, p]
+    lib.vo_top2_mutual_simt.restype = lib.vo_top2_mutual_wgmma.restype = i
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_match_kernel()[0])
-        fn = lib.vo_top2_mutual
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
-        fn.restype = i
-        _lib = lib
+        _lib = load_library(build_match_kernel()[0])
     return _lib
 
 
-def _col_key_init() -> int:
-    """The packed column key of (-1e30, row 0), as the kernel's ``col_key`` orders it."""
-    (u,) = struct.unpack("<I", struct.pack("<f", _NEG))
+def _col_key(value: float, row: int) -> int:
+    """The kernels' packed column key (``match_common.cuh: col_key``): unsigned order
+    is the order of the fp32 value, then of the lower row."""
+    (u,) = struct.unpack("<I", struct.pack("<f", value + 0.0))   # -0 -> +0
     u = (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
-    return (u << 32) | 0xFFFFFFFF
+    return (u << 32) | (0xFFFFFFFF - row)
+
+
+def _col_key_init() -> int:
+    """The key of (-1e30, row 0): XLA's argmax of an all-invalid column."""
+    return _col_key(_NEG, 0)
+
+
+class MatchGrid(NamedTuple):
+    """How a kernel cuts (Na, Nb, D): ``n_row_tiles`` x ``splits`` blocks, each over
+    ``tiles_per_split`` tiles of ``bn`` columns (the last split may hold fewer);
+    operands padded along D to ``d_pad``."""
+
+    bm: int
+    bn: int
+    n_row_tiles: int
+    n_col_tiles: int
+    splits: int
+    tiles_per_split: int
+    d_pad: int
+
+    @property
+    def cols_per_split(self) -> int:
+        return self.tiles_per_split * self.bn
+
+
+def match_grid(na: int, nb: int, d: int, bf16: bool, sms: int) -> MatchGrid:
+    """The grid of a call on a card with ``sms`` SMs.
+
+    wgmma (bf16): 128 x 128 tiles, one block per SM (it holds ~130 KiB of shared
+    memory), D padded to a multiple of 8 (TMA needs 16-byte row strides). SIMT (fp32):
+    64 x 64 tiles, two blocks per SM, D as it is. The columns are cut into as many
+    splits as fill the SMs, none of them empty.
+    """
+    tile, per_sm, d_pad = (128, 1, -(-d // 8) * 8) if bf16 else (64, 2, d)
+    n_row_tiles = -(-na // tile)
+    n_col_tiles = -(-nb // tile)
+    splits = min(max(1, (per_sm * sms) // n_row_tiles), n_col_tiles)
+    tiles_per_split = -(-n_col_tiles // splits)
+    splits = -(-n_col_tiles // tiles_per_split)
+    return MatchGrid(tile, tile, n_row_tiles, n_col_tiles, splits, tiles_per_split, d_pad)
 
 
 def _prepare(desc_a, desc_b, valid_a, valid_b, bf16):
@@ -119,62 +175,132 @@ def top2_mutual_plain(desc_a, desc_b, valid_a=None, valid_b=None, bf16: bool = F
     sim = torch.where(va[:, None] & vb[None, :], sim, _NEG)
     nn21 = torch.argmax(sim, dim=0)
     nn12 = torch.argmax(sim, dim=1)
-    rows = torch.arange(sim.shape[0], device=sim.device)
-    best = sim[rows, nn12]
-    sim[rows, nn12] = _NEG
-    second = torch.amax(sim, dim=1)
+    best = sim.gather(1, nn12[:, None])[:, 0]
+    second = torch.amax(sim.scatter_(1, nn12[:, None], _NEG), dim=1)
     return (nn12.to(torch.int32), torch.stack([best, second], dim=1),
             nn21.to(torch.int32))
 
 
-def _launch(a, b, va, vb):
+def _check_operands(a, b, va, vb):
     if not all(t.is_contiguous() for t in (a, b, va, vb)):
         raise ValueError("descriptors and masks must be contiguous")
     na, d = a.shape
     nb = b.shape[0]
     if na == 0 or nb == 0 or d == 0:
         raise ValueError(f"empty descriptor set: ({na}, {d}) x ({nb}, {d})")
+    return na, nb, d
+
+
+def _outputs(na, nb, dev):
+    return (torch.empty(na, dtype=torch.int32, device=dev),
+            torch.empty((na, 2), dtype=torch.float32, device=dev),
+            torch.empty(nb, dtype=torch.int32, device=dev))
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def launch_simt(a, b, va, vb):
+    """The CUDA-core kernel on fp32 (Na, D) x (Nb, D): two launches (tiles, then the
+    merge of the splits) after a fill of the column keys."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"the SIMT kernel takes fp32 operands, got {a.dtype}, {b.dtype}")
+    na, nb, d = _check_operands(a, b, va, vb)
     dev = a.device
-    n_row_tiles = -(-na // _BM)
-    n_col_tiles = -(-nb // _BN)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = min(max(1, (2 * sms) // n_row_tiles), n_col_tiles)
-    tiles_per_split = -(-n_col_tiles // splits)
-    splits = -(-n_col_tiles // tiles_per_split)
-    part_best = torch.empty((splits, na), dtype=torch.float32, device=dev)
-    part_sec = torch.empty((splits, na), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, na), dtype=torch.int32, device=dev)
+    g = match_grid(na, nb, d, False, _sms(dev))
+    part_best = torch.empty((g.splits, na), dtype=torch.float32, device=dev)
+    part_sec = torch.empty((g.splits, na), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((g.splits, na), dtype=torch.int32, device=dev)
     colkey = torch.full((nb,), _col_key_init(), dtype=torch.int64, device=dev)
-    nn12 = torch.empty(na, dtype=torch.int32, device=dev)
-    top2 = torch.empty((na, 2), dtype=torch.float32, device=dev)
-    nn21 = torch.empty(nb, dtype=torch.int32, device=dev)
+    nn12, top2, nn21 = _outputs(na, nb, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _library().vo_top2_mutual(
+        err = _library().vo_top2_mutual_simt(
             a.data_ptr(), b.data_ptr(), va.data_ptr(), vb.data_ptr(), na, nb, d,
-            int(a.dtype == torch.bfloat16), splits, tiles_per_split * _BN,
-            part_best.data_ptr(), part_sec.data_ptr(), part_idx.data_ptr(),
-            colkey.data_ptr(), nn12.data_ptr(), top2.data_ptr(), nn21.data_ptr(), stream)
+            g.splits, g.cols_per_split, part_best.data_ptr(), part_sec.data_ptr(),
+            part_idx.data_ptr(), colkey.data_ptr(), nn12.data_ptr(), top2.data_ptr(),
+            nn21.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"match kernel launch failed: CUDA error {err}")
-    top2_mutual.launches += 1
+        raise RuntimeError(f"SIMT match kernel launch failed: CUDA error {err}")
+    launch_simt.launches += 1
     return nn12, top2, nn21
 
 
+launch_simt.launches = 0
+
+# The wgmma kernel's scratch, per (device, stream): partial rows, column keys and
+# tickets. The kernel leaves the keys and tickets as it found them, so they are filled
+# only when the scratch is made or grown.
+_scratch: dict = {}
+
+
+def _wgmma_scratch(dev, stream, n_part, nb, n_tickets):
+    key = (dev.index, stream)
+    s = _scratch.get(key)
+    if s is None or s["best"].numel() < n_part:
+        n = max(n_part, 0 if s is None else s["best"].numel())
+        s = dict(s or {}, best=torch.empty(n, dtype=torch.float32, device=dev),
+                 sec=torch.empty(n, dtype=torch.float32, device=dev),
+                 idx=torch.empty(n, dtype=torch.int32, device=dev))
+    if "colkey" not in s or s["colkey"].numel() < nb:
+        s["colkey"] = torch.full((nb,), _col_key_init(), dtype=torch.int64, device=dev)
+    if "tickets" not in s or s["tickets"].numel() < n_tickets:
+        s["tickets"] = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    _scratch[key] = s
+    return s
+
+
+def _aligned16(t):
+    """TMA needs a 16-byte aligned base address: copy a view that lacks it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch_wgmma(a, b, va, vb):
+    """The tensor-core kernel on bf16 (Na, D) x (Nb, D): one launch. A D that is not a
+    multiple of 8 is padded with zero columns here, which leaves every product as it
+    was."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"the wgmma kernel takes bf16 operands, got {a.dtype}, {b.dtype}")
+    na, nb, d = _check_operands(a, b, va, vb)
+    dev = a.device
+    g = match_grid(na, nb, d, True, _sms(dev))
+    if g.d_pad != d:
+        a, b = F.pad(a, (0, g.d_pad - d)), F.pad(b, (0, g.d_pad - d))
+    a, b = _aligned16(a), _aligned16(b)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s = _wgmma_scratch(dev, stream, g.splits * na, nb, g.n_row_tiles + g.splits)
+    nn12, top2, nn21 = _outputs(na, nb, dev)
+    with torch.cuda.device(dev):
+        err = _library().vo_top2_mutual_wgmma(
+            a.data_ptr(), b.data_ptr(), va.data_ptr(), vb.data_ptr(), na, nb, g.d_pad,
+            g.n_row_tiles, g.splits, g.tiles_per_split, s["best"].data_ptr(),
+            s["sec"].data_ptr(), s["idx"].data_ptr(), s["colkey"].data_ptr(),
+            s["tickets"].data_ptr(), nn12.data_ptr(), top2.data_ptr(), nn21.data_ptr(),
+            stream)
+    if err != 0:
+        _scratch.pop((dev.index, stream), None)   # a failed launch may leave it dirty
+        raise RuntimeError(f"wgmma match kernel launch failed: error {err}")
+    launch_wgmma.launches += 1
+    return nn12, top2, nn21
+
+
+launch_wgmma.launches = 0
+
+
 def top2_mutual(desc_a, desc_b, valid_a=None, valid_b=None, bf16: bool = False):
-    """Fused (nn12, top2_sim, nn21): the plain version on the CPU, the kernel on CUDA.
+    """Fused (nn12, top2_sim, nn21): the plain version on the CPU, a kernel on CUDA.
 
     bf16=True rounds the operands to bf16 (exact for +-1 descriptors) before the fp32
-    accumulation, as the TPU kernel does.
+    accumulation, as the TPU kernel does, and takes the wgmma kernel; bf16=False takes
+    the fp32 operands to the SIMT kernel.
     """
     if desc_a.device.type == "cpu":
         return top2_mutual_plain(desc_a, desc_b, valid_a, valid_b, bf16)
     if desc_a.device.type != "cuda":
         raise ValueError(f"top2_mutual runs on cpu or cuda, not {desc_a.device}")
-    return _launch(*_prepare(desc_a, desc_b, valid_a, valid_b, bf16))
-
-
-top2_mutual.launches = 0
+    launch = launch_wgmma if bf16 else launch_simt
+    return launch(*_prepare(desc_a, desc_b, valid_a, valid_b, bf16))
 
 
 def ratio_mutual_nn_match_fused(desc_a, desc_b, valid_a=None, valid_b=None,
