@@ -9,19 +9,27 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    ptxas's registers and spills for each: the wgmma kernel (bf16 operands,
    ``match_wgmma.cu``) and the SIMT kernel (fp32 operands, ``match_kernel.cu``);
 3. kernels vs plain: each kernel against ``top2_mutual_plain`` on the card: workload
-   descriptors, tie-heavy cases, ragged and tiny shapes, D = 64 and D = 100, Nb > 16384,
-   float unit vectors, and calls in a row on new inputs;
+   descriptors, tie-heavy cases, ragged and tiny shapes, widths that need padding,
+   Nb > 16384, SIFT-like descriptors, a misaligned view, all-invalid columns, and
+   calls in a row that grow and shrink the cached scratch;
 4. main path: the port's ``run_offline_vo`` on the 160-frame 376 x 1232 synthetic
    RGB-D slalom (2048 keypoints, 512 hypotheses); asserts the trajectory gate, one
    wgmma launch per tracked frame, and identical poses from the plain matcher;
 5. float-mode path: the engine with the ``ratio_mutual_nn`` matcher on the first 32
    frames' descriptors as fp32 unit vectors (+-1/16); asserts one SIMT launch per
    tracked frame and identical poses from the plain matcher;
-6. timing: extraction, the engine, and each kernel at 2048 x 2048 x 256 against its
-   plain version and a library yardstick, then a profile of extraction and the engine.
+6. SIFT-config path: ``run_offline_vo`` on the same frames with the multi-scale DoG +
+   oriented gradhist extractor and the ``ratio_float`` matcher (``bench.py:337-386``);
+   asserts the gate and one SIMT launch per tracked frame; the plain-matcher engine on
+   the same features passes the gate too; times extraction and the engine;
+7. timing: extraction, the engine, and the kernels (wgmma at 2048 x 2048 x 256 bf16;
+   SIMT at 2048 x 2048 x 128 on the SIFT frames' descriptors and at 2048 x 2048 x 256
+   on the main path's as fp32) against their plain versions, a library yardstick and
+   the bound; one CUDA kernel per SIMT call under the profiler; then a profile of
+   extraction and the engine.
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
-line before it lists each kernel with its launches, error, times and bound.
+line before it lists each kernel and shape with its launches, error, times and bound.
 """
 
 from __future__ import annotations
@@ -30,7 +38,6 @@ import json
 import multiprocessing
 import os
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -41,6 +48,7 @@ STEP = 0.8
 K = np.array([[721.53, 0.0, 609.55], [0.0, 721.53, 172.85], [0.0, 0.0, 1.0]], np.float32)
 
 F_FLOAT = 32           # depth of the float-mode path
+N_PASSES = 3           # timed passes per path (median)
 
 # H100 SXM published dense peaks (NVIDIA data sheet) for the bounds of the kernels.
 PEAK_BF16_FLOPS = 989e12
@@ -87,13 +95,15 @@ def _reset_counts() -> None:
     match.launch_wgmma.launches = match.launch_simt.launches = 0
 
 
+KERNELS = ("top2_wgmma_kernel", "top2_simt_kernel")
+
+
 def _ptxas_lines(out: str) -> list[str]:
     """ptxas's register and spill lines, each with the kernel it belongs to."""
     lines, kernel = [], "?"
     for line in out.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("top2_wgmma_kernel", "top2_tile_kernel",
-                                       "finalize_kernel") if k in line), line.strip())
+            kernel = next((k for k in KERNELS if k in line), line.strip())
         elif "registers" in line or "spill" in line:
             lines.append(f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
     return lines
@@ -123,9 +133,10 @@ def _float_case(rng, na, nb, d):
     return a, b, rng.uniform(size=na) > 0.1, rng.uniform(size=nb) > 0.1
 
 
-def _check_kernel(name, a, b, va, vb, bf16) -> float:
+def _check_kernel(name, a, b, va, vb, bf16, exact=None) -> float:
     """Kernel vs plain on the card (one launch of the kernel that ``bf16`` selects);
-    returns the largest |top2| difference."""
+    returns the largest |top2| difference. ``exact`` (default: ``bf16``) holds +-1
+    operands, whose products and sums are exact, to equal outputs."""
     import torch
 
     from vo_tpu_torch.ops import match
@@ -141,7 +152,7 @@ def _check_kernel(name, a, b, va, vb, bf16) -> float:
     torch.cuda.synchronize()
     (nn12, top2, nn21), (r12, rtop2, r21) = got, ref
     err = float(np.abs(top2 - rtop2).max())
-    if bf16:      # +-1 products and integer sums: exact
+    if bf16 if exact is None else exact:    # +-1 products and integer sums: exact
         ok = (nn12 == r12).all() and (nn21 == r21).all() and err == 0.0
     else:         # fp32 sums in another order: 1e-5, indices where the gap is clear
         sure = rtop2[:, 0] - rtop2[:, 1] > 1e-4
@@ -152,6 +163,114 @@ def _check_kernel(name, a, b, va, vb, bf16) -> float:
     if not ok:
         raise AssertionError(f"match kernel disagrees with the plain version on {name}")
     return err
+
+
+def _synthetic_checks(dev) -> dict:
+    """Phase 3: every kernel against its plain version on made-up cases."""
+    import torch
+
+    from vo_tpu_torch.ops.match_timing import sift_like
+
+    rng = np.random.default_rng(8214)
+    # (name, arrays, bf16, exact)
+    cases = [("binary ties", _binary_case(rng, 2048, 2048), True, True),
+             ("binary ties, new inputs", _binary_case(rng, 2048, 2048), True, True),
+             ("binary Nb > 16384", _binary_case(rng, 2048, 20000), True, True),
+             ("binary 1 x 1", _binary_case(rng, 1, 1), True, True),
+             ("binary ragged", _binary_case(rng, 63, 65), True, True),
+             ("binary ragged", _binary_case(rng, 129, 257), True, True),
+             ("binary D = 100", _binary_case(rng, 300, 280, 100), True, True),
+             ("binary D = 64", _binary_case(rng, 500, 600, 64), True, True),
+             ("binary ties, after smaller calls", _binary_case(rng, 2048, 2048), True, True),
+             ("SIFT-like", sift_like(rng, 2048, 2048), False, False),
+             ("float", _float_case(rng, 1000, 1200, 128), False, False),
+             ("float D = 100", _float_case(rng, 300, 280, 100), False, False),
+             ("float D = 130", _float_case(rng, 300, 280, 130), False, False),
+             ("binary as fp32", _binary_case(rng, 2048, 2048), False, True),
+             ("binary as fp32 1 x 1", _binary_case(rng, 1, 1), False, True),
+             ("binary as fp32 ragged", _binary_case(rng, 63, 65), False, True),
+             ("binary as fp32 ragged", _binary_case(rng, 129, 257), False, True),
+             ("binary as fp32 Nb > 16384", _binary_case(rng, 2048, 20000), False, True),
+             ("binary as fp32 D = 64, smaller call", _binary_case(rng, 500, 600, 64), False, True),
+             ("SIFT-like, after smaller calls", sift_like(rng, 2048, 2048), False, False)]
+    errs = {"wgmma": [], "simt": []}
+    for name, arrays, bf16, exact in cases:
+        a, b, va, vb = (torch.from_numpy(x).to(dev) for x in arrays)
+        if bf16:
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        errs["wgmma" if bf16 else "simt"].append(
+            _check_kernel(name, a, b, va, vb, bf16, exact))
+
+    # fp32 edge cases: a view 4 bytes into its storage (TMA needs 16-byte aligned
+    # operands: the wrapper copies it), and no valid column at all.
+    a, b, va, vb = (torch.from_numpy(x).to(dev) for x in _binary_case(rng, 300, 400))
+    flat = torch.zeros(a.numel() + 1, dtype=torch.float32, device=dev)
+    a_view = flat[1:].view(a.shape)
+    a_view.copy_(a)
+    if a_view.data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned case is aligned")
+    errs["simt"].append(_check_kernel("binary as fp32, misaligned view", a_view, b, va, vb,
+                                      False, True))
+    errs["simt"].append(_check_kernel("binary as fp32, no valid column", a, b, va,
+                                      torch.zeros_like(vb), False, True))
+    return errs
+
+
+def _gate(name, poses, accepted, gt, launches=None) -> bool:
+    """The trajectory gate of ``bench.py``; prints the line and returns pass/fail."""
+    from vo_tpu_torch.evalkit import KittiOdomEvaluator
+
+    res = KittiOdomEvaluator().evaluate(gt, poses)
+    accept = float(np.mean(accepted))
+    drift = float(np.linalg.norm(poses[-1, :3, 3] - gt[-1, :3, 3]))
+    sane = (res.seg_trans_err_pct < 1.5 and res.seg_rot_err_deg_per_100m < 2.0
+            and accept > 0.8 and np.isfinite(poses).all())
+    print(f"trajectory [{name}]: seg_trans {res.seg_trans_err_pct:.4f} %, seg_rot "
+          f"{res.seg_rot_err_deg_per_100m:.4f} deg/100m, accept {accept:.3f}, final drift "
+          f"{drift:.3f} m" + ("" if launches is None else f", match launches {launches}")
+          + f" -> {'ok' if sane else 'FAIL'}")
+    return sane
+
+
+def _timed_passes(extractor, engine, imgs_d, deps_d, Kd):
+    """Extraction and engine ms/frame over ``N_PASSES`` passes (median), and the
+    features of the last pass."""
+    import torch
+
+    from vo_tpu_torch.engine.pipeline import extract_and_backproject
+
+    t_ex, t_en = [], []
+    for _ in range(N_PASSES):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        chunks = [extract_and_backproject(extractor, imgs_d[s:s + EXTRACT_BATCH],
+                                          deps_d[s:s + EXTRACT_BATCH], Kd)
+                  for s in range(0, F, EXTRACT_BATCH)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        feats = [torch.cat([c[0][i] for c in chunks]) for i in (0, 1, 3)]
+        k3 = torch.cat([c[1] for c in chunks])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        engine.run_sequence(*feats, k3, Kd)
+        torch.cuda.synchronize()
+        t_ex.append((t2 - t1) / F * 1e3)
+        t_en.append((time.perf_counter() - t3) / F * 1e3)
+    return float(np.median(t_ex)), float(np.median(t_en)), t_ex, t_en, (*feats, k3)
+
+
+def _profile_lines(card, stage, fn, per, wall_ms) -> None:
+    busy_ms, n_kernels, top = _device_profile(fn)
+    if busy_ms is None:
+        print(f"profile [{card}] {stage}: device time not measured (empty trace)")
+        return
+    busy = busy_ms / per
+    print(f"profile [{card}] {stage}: device busy {busy:.3f} ms/frame of "
+          f"{wall_ms:.3f} ms/frame wall (idle share {1.0 - busy / wall_ms:.3f}), "
+          f"{n_kernels / per:.0f} CUDA kernels/frame")
+    for name, count, ms in top:
+        print(f"  {stage} top kernel: {ms / per:.4f} ms/frame, {count / per:.0f}/frame, "
+              f"{name}")
 
 
 def main() -> None:
@@ -173,15 +292,15 @@ def main() -> None:
     from vo_tpu_torch.engine.pipeline import extract_and_backproject, run_offline_vo
     from vo_tpu_torch.engine.vo import VOConfig, VOEngine
     from vo_tpu_torch.estimation.pnp import PnPConfig
-    from vo_tpu_torch.evalkit import KittiOdomEvaluator
     from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
     from vo_tpu_torch.ops import match
     from vo_tpu_torch.ops.match_timing import eager_ms, graph_ms
     from vo_tpu_torch.utils.synthetic import (depth_valid_fraction, render_rgbd,
                                               slalom_trajectory)
 
     # The renderer is per-frame independent numpy: render the workload in a pool of
-    # processes while the kernel builds and is checked.
+    # processes while the kernels build and are checked.
     traj = slalom_trajectory(F, step=STEP)
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(processes=min(8, os.cpu_count() or 1)) as pool:
@@ -195,32 +314,15 @@ def main() -> None:
         ptxas_lines = _ptxas_lines(ptxas)
         for line in ptxas_lines:
             print(f"  ptxas: {line}")
-        if build_s > 0 and not any(x.startswith("top2_wgmma_kernel") for x in ptxas_lines):
-            raise AssertionError("ptxas printed nothing for the wgmma kernel")
+        for kernel in KERNELS:
+            if build_s > 0 and not any(x.startswith(kernel) for x in ptxas_lines):
+                raise AssertionError(f"ptxas printed nothing for {kernel}")
         phase_s["build"] = time.perf_counter() - t0
 
-        # Phase 3: kernel vs plain on the card (workload descriptors come after the
+        # Phase 3: kernels vs plain on the card (workload descriptors come after the
         # render finishes).
         t0 = time.perf_counter()
-        rng = np.random.default_rng(8214)
-        cases = [("binary ties", _binary_case(rng, 2048, 2048), True),
-                 ("binary ties, new inputs", _binary_case(rng, 2048, 2048), True),
-                 ("binary Nb > 16384", _binary_case(rng, 2048, 20000), True),
-                 ("binary 1 x 1", _binary_case(rng, 1, 1), True),
-                 ("binary ragged", _binary_case(rng, 63, 65), True),
-                 ("binary ragged", _binary_case(rng, 129, 257), True),
-                 ("binary D = 100", _binary_case(rng, 300, 280, 100), True),
-                 ("binary D = 64", _binary_case(rng, 500, 600, 64), True),
-                 ("binary ties, after smaller calls", _binary_case(rng, 2048, 2048), True),
-                 ("float", _float_case(rng, 1000, 1200, 128), False),
-                 ("float D = 100", _float_case(rng, 300, 280, 100), False),
-                 ("binary as fp32", _binary_case(rng, 2048, 2048), False)]
-        errs = {"wgmma": [], "simt": []}
-        for name, arrays, bf16 in cases:
-            a, b, va, vb = (torch.from_numpy(x).to(dev) for x in arrays)
-            if bf16:
-                a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-            errs["wgmma" if bf16 else "simt"].append(_check_kernel(name, a, b, va, vb, bf16))
+        errs = _synthetic_checks(dev)
         phase_s["kernel_checks_synthetic"] = time.perf_counter() - t0
 
         frames = rendered.get(timeout=900)
@@ -231,6 +333,7 @@ def main() -> None:
     if float(dvf.min()) <= 0.5:
         raise AssertionError(f"degenerate workload: depth-valid fraction {dvf.min():.3f}")
     print(f"render: {F} frames {H}x{W} in {phase_s['render_wall']:.1f} s wall")
+    gt = np.asarray(traj, np.float64)
 
     extractor = OrbLikeExtractor(max_kp=2048)
     cfg = VOConfig(matcher="ratio_binary", pnp=PnPConfig(n_hypotheses=512))
@@ -246,7 +349,7 @@ def main() -> None:
     errs["wgmma"].append(_check_kernel("workload frames 0, 1", desc_a, desc_b, valid_a,
                                        valid_b, True))
     errs["simt"].append(_check_kernel("workload frames 0, 1 as fp32", desc_a32, desc_b32,
-                                      valid_a, valid_b, False))
+                                      valid_a, valid_b, False, True))
     phase_s["kernel_checks_workload"] = time.perf_counter() - t0
 
     # Phase 4: main path, counted.
@@ -262,18 +365,8 @@ def main() -> None:
         raise AssertionError(f"main path launches {counts}, expected {F - 1} wgmma, 0 simt")
     if not np.isfinite(poses).all() or poses.shape != (F, 4, 4):
         raise AssertionError(f"bad poses: shape {poses.shape}, finite {np.isfinite(poses).all()}")
-
-    gt = np.asarray(traj, np.float64)
-    res = KittiOdomEvaluator().evaluate(gt, poses)
-    accept = float(np.mean(diag.accepted))
-    drift = float(np.linalg.norm(poses[-1, :3, 3] - gt[-1, :3, 3]))
-    sane = (res.seg_trans_err_pct < 1.5 and res.seg_rot_err_deg_per_100m < 2.0
-            and accept > 0.8)
-    print(f"trajectory: seg_trans {res.seg_trans_err_pct:.4f} %, seg_rot "
-          f"{res.seg_rot_err_deg_per_100m:.4f} deg/100m, accept {accept:.3f}, final drift "
-          f"{drift:.3f} m, keyframes {int(diag.promoted_keyframe.sum())}, "
-          f"match launches {launches} -> {'ok' if sane else 'FAIL'}")
-    if not sane:
+    print(f"main path keyframes {int(diag.promoted_keyframe.sum())}")
+    if not _gate("main path", poses, diag.accepted, gt, launches):
         raise AssertionError("trajectory gate failed")
 
     t0 = time.perf_counter()
@@ -312,107 +405,102 @@ def main() -> None:
         raise AssertionError("float-mode path failed")
     phase_s["float_path"] = time.perf_counter() - t0
 
-    # Timing: median of 3 timed passes after the warm-up above.
+    # Phase 6: the SIFT-config path of bench.py, counted, then the plain matcher on
+    # its features. fp32 sums in another order may flip near-tied matches, so the two
+    # runs are each held to the gate, not to identical poses.
+    t0 = time.perf_counter()
+    sift = MultiScaleClassicExtractor(max_kp=2048, n_scales=4, response="dog",
+                                      descriptor="gradhist", oriented=True)
+    sift_cfg = dict(matcher="ratio_float", ratio=0.85, pnp=PnPConfig(n_hypotheses=512))
+    _reset_counts()
+    poses_s, diag_s, (feats_s, kp3d_s) = run_offline_vo(
+        imgs, deps, K, vo_config=VOConfig(**sift_cfg), extractor=sift,
+        extraction_batch=EXTRACT_BATCH, return_features=True, device="cuda")
+    counts_s = _counts()
+    if counts_s != {"wgmma": 0, "simt": F - 1}:
+        raise AssertionError(f"SIFT path launches {counts_s}, expected {F - 1} simt, 0 wgmma")
+    if feats_s.desc.shape[1:] != (2048, 128) or feats_s.desc.dtype != torch.bfloat16:
+        raise AssertionError(f"SIFT descriptors {tuple(feats_s.desc.shape)} {feats_s.desc.dtype}")
+    print(f"SIFT path: {int(feats_s.valid.sum(1).float().mean())} valid keypoints/frame, "
+          f"keyframes {int(diag_s.promoted_keyframe.sum())}, mean matches "
+          f"{float(np.mean(diag_s.n_matches)):.1f}")
+    sift_ok = _gate("SIFT path", poses_s, diag_s.accepted, gt, counts_s["simt"])
+    poses_sp, diag_sp = VOEngine(VOConfig(**sift_cfg, use_match_kernel=False),
+                                 device=dev).run_sequence(feats_s.kp, feats_s.desc,
+                                                          feats_s.valid, kp3d_s, Kd)
+    poses_sp = poses_sp.cpu().numpy()
+    plain_ok = _gate("SIFT path, plain matcher", poses_sp, diag_sp.accepted.cpu().numpy(), gt)
+    dpos = np.abs(poses_sp - poses_s)
+    print(f"SIFT path kernel vs plain matcher: largest per-frame difference "
+          f"{float(dpos[:, :3, 3].max()):.3e} m in translation, "
+          f"{float(dpos[:, :3, :3].max()):.3e} in a rotation entry; poses identical = "
+          f"{bool((dpos == 0).all())}")
+    if not (sift_ok and plain_ok):
+        raise AssertionError("SIFT-config path failed the trajectory gate")
+    sd_a, sd_b = (feats_s.desc[i].float().contiguous() for i in (0, 1))
+    sv_a, sv_b = feats_s.valid[0].contiguous(), feats_s.valid[1].contiguous()
+    errs["simt"].append(_check_kernel("SIFT path frames 0, 1", sd_a, sd_b, sv_a, sv_b,
+                                      False))
+    phase_s["sift_path"] = time.perf_counter() - t0
+
+    # Timing: median of N_PASSES timed passes after the warm-up above, per path.
     t0 = time.perf_counter()
     engine = VOEngine(cfg, device=dev)
-    t_ex, t_en = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        chunks = [extract_and_backproject(extractor, imgs_d[s:s + EXTRACT_BATCH],
-                                          deps_d[s:s + EXTRACT_BATCH], Kd)
-                  for s in range(0, F, EXTRACT_BATCH)]
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        kp = torch.cat([c[0].kp for c in chunks])
-        desc = torch.cat([c[0].desc for c in chunks])
-        valid = torch.cat([c[0].valid for c in chunks])
-        k3 = torch.cat([c[1] for c in chunks])
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        engine.run_sequence(kp, desc, valid, k3, Kd)
-        torch.cuda.synchronize()
-        t_ex.append((t2 - t1) / F * 1e3)
-        t_en.append((time.perf_counter() - t3) / F * 1e3)
-    extract_ms, engine_ms = float(np.median(t_ex)), float(np.median(t_en))
+    extract_ms, engine_ms, t_ex, t_en, (kp, desc, valid, k3) = _timed_passes(
+        extractor, engine, imgs_d, deps_d, Kd)
+    sift_engine = VOEngine(VOConfig(**sift_cfg), device=dev)
+    s_extract_ms, s_engine_ms, s_ex, s_en, _ = _timed_passes(
+        sift, sift_engine, imgs_d, deps_d, Kd)
+    phase_s["timing_paths"] = time.perf_counter() - t0
 
-    # Each kernel on the workload descriptors of frames 0 and 1: the wgmma kernel on
-    # the bf16 operands, the SIMT kernel on the same values as fp32. The library
-    # yardstick (a masked matmul + topk(2) + argmax, never called by the port) runs in
-    # the same operand type; fp32 matmuls keep TF32 off (vo_tpu_torch.device).
-    n_rep = 50
-    mask = valid_a[:, None] & valid_b[None, :]
-
-    def library(a, b):
-        sim = torch.where(mask, torch.matmul(a, b.T).float(), -1e30)
-        return torch.topk(sim, 2, dim=1), torch.argmax(sim, dim=0)
-
-    # Two clocks: CUDA-graph replays give each function's device time; back-to-back
-    # eager calls add whatever host time per call the device does not hide.
-    times = {}
-    for kernel, a, b, bf16 in (("wgmma", desc_a, desc_b, True),
-                               ("simt", desc_a32, desc_b32, False)):
-        fns = {"ms": lambda: match.top2_mutual(a, b, valid_a, valid_b, bf16=bf16),
-               "plain_ms": lambda: match.top2_mutual_plain(a, b, valid_a, valid_b, bf16=bf16),
-               "library_ms": lambda: library(a, b)}
-        times[kernel] = {k: graph_ms(fn, n_rep) for k, fn in fns.items()}
-        times[kernel]["eager"] = {k: eager_ms(fn, n_rep) for k, fn in fns.items()}
-    phase_s["timing"] = time.perf_counter() - t0
-
-    # Where the time goes: device-busy time and kernel launches per frame under
-    # torch.profiler, against the unprofiled wall time per frame measured above.
+    # Each kernel at the shapes its paths give it: the wgmma kernel on the main
+    # path's bf16 descriptors of frames 0 and 1, the SIMT kernel on the SIFT path's
+    # (D = 128) and on the main path's as fp32 (D = 256). The library yardstick (a
+    # masked matmul + topk(2) + argmax, never called by the port) runs in the same
+    # operand type; fp32 matmuls keep TF32 off (vo_tpu_torch.device).
     t0 = time.perf_counter()
-    n_steps = 8
-    prof = {
-        "extract": (lambda: extract_and_backproject(
-            extractor, imgs_d[:EXTRACT_BATCH], deps_d[:EXTRACT_BATCH], Kd),
-            EXTRACT_BATCH, extract_ms),
-        "engine": (lambda: engine.run_sequence(kp[:n_steps + 1], desc[:n_steps + 1],
-                                               valid[:n_steps + 1], k3[:n_steps + 1], Kd),
-                   n_steps, engine_ms),
-    }
-    for stage, (fn, per, wall_ms) in prof.items():
-        busy_ms, n_kernels, top = _device_profile(fn)
-        if busy_ms is None:
-            print(f"profile [{card}] {stage}: device time not measured (empty trace)")
-            continue
-        busy = busy_ms / per
-        print(f"profile [{card}] {stage}: device busy {busy:.3f} ms/frame of "
-              f"{wall_ms:.3f} ms/frame wall (idle share {1.0 - busy / wall_ms:.3f}), "
-              f"{n_kernels / per:.0f} CUDA kernels/frame")
-        for name, count, ms in top:
-            print(f"  {stage} top kernel: {ms / per:.4f} ms/frame, {count / per:.0f}/frame, "
-                  f"{name}")
-    phase_s["profile"] = time.perf_counter() - t0
-
-    print(f"timing [{card}]: extract {extract_ms:.3f} ms/frame (passes "
-          f"{[round(x, 3) for x in t_ex]}), engine {engine_ms:.3f} ms/frame (passes "
-          f"{[round(x, 3) for x in t_en]})")
-
-    # Bounds: each operand read once (2 or 4 bytes an element), masks read, outputs
-    # (nn12, top2, nn21) written once; products at the peak of the operand type.
-    na, d = desc_a.shape
-    nb = desc_b.shape[0]
-    flops = 2.0 * na * nb * d
+    n_rep = 50
+    timed = [("wgmma", "match_wgmma.cu", desc_a, desc_b, valid_a, valid_b, True,
+              PEAK_BF16_FLOPS, "989 TFLOP/s bf16", launches),
+             ("simt", "match_kernel.cu", sd_a, sd_b, sv_a, sv_b, False,
+              PEAK_FP32_FLOPS, "67 TFLOP/s fp32", counts_s["simt"]),
+             ("simt", "match_kernel.cu", desc_a32, desc_b32, valid_a, valid_b, False,
+              PEAK_FP32_FLOPS, "67 TFLOP/s fp32", counts_f["simt"])]
     entries = []
-    for kernel, source, elem, peak, peak_name, launched in (
-            ("wgmma", "match_wgmma.cu", 2, PEAK_BF16_FLOPS, "989 TFLOP/s bf16", launches),
-            ("simt", "match_kernel.cu", 4, PEAK_FP32_FLOPS, "67 TFLOP/s fp32",
-             counts_f["simt"])):
+    for kernel, source, a, b, va, vb, bf16, peak, peak_name, launched in timed:
+        mask = va[:, None] & vb[None, :]
+
+        def library(a=a, b=b, mask=mask):
+            sim = torch.where(mask, torch.matmul(a, b.T).float(), -1e30)
+            return torch.topk(sim, 2, dim=1), torch.argmax(sim, dim=0)
+
+        # Two clocks: CUDA-graph replays give each function's device time;
+        # back-to-back eager calls add whatever host time per call the device does
+        # not hide.
+        fns = {"ms": lambda: match.top2_mutual(a, b, va, vb, bf16=bf16),
+               "plain_ms": lambda: match.top2_mutual_plain(a, b, va, vb, bf16=bf16),
+               "library_ms": library}
+        tm = {k: graph_ms(fn, n_rep) for k, fn in fns.items()}
+        eager = {k: eager_ms(fn, n_rep) for k, fn in fns.items()}
+        # Bound: each operand read once (2 or 4 bytes an element), masks read, outputs
+        # (nn12, top2, nn21) written once; products at the peak of the operand type.
+        (na, d), nb = a.shape, b.shape[0]
+        elem = 2 if bf16 else 4
+        flops = 2.0 * na * nb * d
         nbytes = (na + nb) * d * elem + (na + nb) + na * (4 + 8) + nb * 4
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
-        tm = times[kernel]
-        print(f"{kernel} kernel [{card}] {na}x{nb}x{d} {'bf16' if elem == 2 else 'fp32'}: "
-              f"kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, library (matmul "
-              f"+ topk + argmax) {tm['library_ms']:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+        shape = f"{na}x{nb}x{d} {'bf16' if bf16 else 'fp32'}"
+        print(f"{kernel} kernel [{card}] {shape}: kernel {tm['ms']:.4f} ms, plain "
+              f"{tm['plain_ms']:.4f} ms, library (matmul + topk + argmax) "
+              f"{tm['library_ms']:.4f} ms, bound {bound_ms * 1e3:.2f} us "
               f"({flops / 1e9:.3f} GFLOP at {peak_name}; {nbytes / 2**20:.2f} MiB at "
               f"3.35 TB/s), achieved {flops / tm['ms'] / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / tm['ms'] * 100:.2f} % of the bound (CUDA-graph replays); "
-              f"eager back-to-back: kernel {tm['eager']['ms']:.4f} ms, plain "
-              f"{tm['eager']['plain_ms']:.4f} ms, library {tm['eager']['library_ms']:.4f} ms")
+              f"eager back-to-back: kernel {eager['ms']:.4f} ms, plain "
+              f"{eager['plain_ms']:.4f} ms, library {eager['library_ms']:.4f} ms")
         entries.append({
-            "name": f"top2_mutual_{kernel}",
+            "name": f"top2_mutual_{kernel} {shape}",
             "route": "cuda",
             "source": f"vo_tpu_torch/ops/csrc/{source}",
             "replaces": "vo_tpu/ops/pallas_match.py:36",
@@ -424,6 +512,37 @@ def main() -> None:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": tm["library_ms"],
         })
+
+    # One CUDA kernel per SIMT call: no fill and no finalize kernel.
+    _, n_kernels, top = _device_profile(lambda: match.top2_mutual(sd_a, sd_b, sv_a, sv_b))
+    if n_kernels is None:
+        print("simt call under the profiler: device time not measured (empty trace)")
+    else:
+        print(f"simt call under the profiler: {n_kernels} CUDA kernel(s): "
+              f"{[name for name, _, _ in top]}")
+        if n_kernels != 1:
+            raise AssertionError(f"a SIMT call launched {n_kernels} CUDA kernels")
+    phase_s["timing_kernels"] = time.perf_counter() - t0
+
+    # Where the time goes: device-busy time and kernel launches per frame under
+    # torch.profiler, against the unprofiled wall time per frame measured above.
+    t0 = time.perf_counter()
+    n_steps = 8
+    batch = (imgs_d[:EXTRACT_BATCH], deps_d[:EXTRACT_BATCH], Kd)
+    _profile_lines(card, "extract", lambda: extract_and_backproject(extractor, *batch),
+                   EXTRACT_BATCH, extract_ms)
+    _profile_lines(card, "engine", lambda: engine.run_sequence(
+        kp[:n_steps + 1], desc[:n_steps + 1], valid[:n_steps + 1], k3[:n_steps + 1], Kd),
+        n_steps, engine_ms)
+    _profile_lines(card, "SIFT extract", lambda: extract_and_backproject(sift, *batch),
+                   EXTRACT_BATCH, s_extract_ms)
+    phase_s["profile"] = time.perf_counter() - t0
+
+    for path, (ex_ms, en_ms, ex, en) in (("main path", (extract_ms, engine_ms, t_ex, t_en)),
+                                         ("SIFT path", (s_extract_ms, s_engine_ms, s_ex, s_en))):
+        print(f"timing [{card}] {path}: extract {ex_ms:.3f} ms/frame (passes "
+              f"{[round(x, 3) for x in ex]}), engine {en_ms:.3f} ms/frame (passes "
+              f"{[round(x, 3) for x in en]})")
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 

@@ -7,9 +7,10 @@ PyTorch and the CUDA toolkit:
 
 (``--noconftest`` because tests/conftest.py configures JAX). Without a card every test
 here skips. bf16 cases go through the wgmma kernel (``launch_wgmma``), fp32 cases
-through the SIMT kernel (``launch_simt``). Binary +-1 descriptors give integer
-similarities: nn12, nn21 and top2 must be exactly equal. Float unit vectors sum fp32
-products in another order: top2 within 1e-5, nn12 equal wherever best - second > 1e-4.
+through the SIMT kernel (``launch_simt``). Binary +-1 descriptors, in bf16 or fp32,
+give integer similarities: nn12, nn21 and top2 must be exactly equal. Float unit
+vectors sum fp32 products in another order: top2 within 1e-5, nn12 equal wherever
+best - second > 1e-4.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from vo_tpu_torch.ops import match
+from vo_tpu_torch.ops.match_timing import sift_like
 
 
 def _binary(rng, na, nb, d=256):
@@ -52,6 +54,16 @@ CASES = {
     "float_1000x1200x128": (lambda r: _float(r, 1000, 1200, 128), False),
     "float_300x280x100": (lambda r: _float(r, 300, 280, 100), False),
     "float_as_bf16_500x600x64": (lambda r: _float(r, 500, 600, 64), True),
+    # fp32: the SIFT path's descriptors, widths that need padding, ragged and tiny
+    # shapes and a long B, the last ones as exact +-1 values.
+    "sift_like_2048x2048x128": (lambda r: sift_like(r, 2048, 2048), False),
+    "float_300x280x130": (lambda r: _float(r, 300, 280, 130), False),
+    "binary_as_fp32_2048x2048x256": (lambda r: _binary(r, 2048, 2048), False),
+    "binary_as_fp32_1x1x256": (lambda r: _binary(r, 1, 1), False),
+    "binary_as_fp32_63x65x256": (lambda r: _binary(r, 63, 65), False),
+    "binary_as_fp32_129x257x256": (lambda r: _binary(r, 129, 257), False),
+    "binary_as_fp32_2048x20000x256": (lambda r: _binary(r, 2048, 20000), False),
+    "binary_as_fp32_300x280x100": (lambda r: _binary(r, 300, 280, 100), False),
 }
 
 
@@ -86,50 +98,68 @@ def test_kernel_vs_plain(cuda_device, case):
     after = (match.launch_wgmma.launches, match.launch_simt.launches)
     assert after == ((before[0] + 1, before[1]) if bf16 else (before[0], before[1] + 1))
     ref = match.top2_mutual_plain(a, b, va, vb, bf16=bf16)
-    _check(got, ref, exact=bf16 and "binary" in case)
+    _check(got, ref, exact="binary" in case)
+
+
+DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                                 ids=["bf16", "fp32"])
 
 
 @pytest.mark.cuda
-def test_repeated_calls_reset_scratch(cuda_device):
-    """The wgmma kernel resets its cached column keys and tickets itself: calls in a
-    row on new inputs, growing and shrinking, are each exact."""
+@DTYPES
+def test_repeated_calls_reset_scratch(cuda_device, dtype):
+    """Each kernel resets its cached column keys and tickets itself (and they share
+    them): calls in a row on new inputs, growing and shrinking, are each exact."""
     rng = np.random.default_rng(73)
+    bf16 = dtype == torch.bfloat16
     for na, nb, d in ((2048, 2048, 256), (2048, 2048, 256), (300, 5000, 256),
                       (129, 257, 64), (2048, 2048, 256)):
         a, b, va, vb = (torch.from_numpy(x).to(cuda_device) for x in _binary(rng, na, nb, d))
-        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        got = match.top2_mutual(a, b, va, vb, bf16=True)
+        a, b = a.to(dtype), b.to(dtype)
+        got = match.top2_mutual(a, b, va, vb, bf16=bf16)
         torch.cuda.synchronize()
-        _check(got, match.top2_mutual_plain(a, b, va, vb, bf16=True), exact=True)
+        _check(got, match.top2_mutual_plain(a, b, va, vb, bf16=bf16), exact=True)
+
+
+def _misaligned(cuda_device, dtype):
+    """TMA needs 16-byte aligned operands: a view that starts one element into its
+    storage is copied by the wrapper, and the result is still exact."""
+    rng = np.random.default_rng(74)
+    a, b, va, vb = (torch.from_numpy(x).to(cuda_device) for x in _binary(rng, 300, 400))
+    flat = torch.zeros(a.numel() + 1, dtype=dtype, device=cuda_device)
+    a_view = flat[1:].view(a.shape)
+    a_view.copy_(a)
+    assert a_view.data_ptr() % 16 != 0
+    b = b.to(dtype)
+    bf16 = dtype == torch.bfloat16
+    got = match.top2_mutual(a_view, b, va, vb, bf16=bf16)
+    torch.cuda.synchronize()
+    _check(got, match.top2_mutual_plain(a_view, b, va, vb, bf16=bf16), exact=True)
 
 
 @pytest.mark.cuda
 def test_wgmma_takes_misaligned_views(cuda_device):
-    """TMA needs 16-byte aligned operands: a view that starts 2 bytes into its storage
-    is copied by the wrapper, and the result is still exact."""
-    rng = np.random.default_rng(74)
-    a, b, va, vb = (torch.from_numpy(x).to(cuda_device) for x in _binary(rng, 300, 400))
-    flat = torch.zeros(a.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
-    a_view = flat[1:].view(a.shape)
-    a_view.copy_(a)
-    assert a_view.data_ptr() % 16 != 0
-    b = b.to(torch.bfloat16)
-    got = match.top2_mutual(a_view, b, va, vb, bf16=True)
-    torch.cuda.synchronize()
-    _check(got, match.top2_mutual_plain(a_view, b, va, vb, bf16=True), exact=True)
+    _misaligned(cuda_device, torch.bfloat16)
 
 
 @pytest.mark.cuda
-def test_all_invalid_and_single_column(cuda_device):
+def test_simt_takes_misaligned_views(cuda_device):
+    _misaligned(cuda_device, torch.float32)
+
+
+@pytest.mark.cuda
+@DTYPES
+def test_all_invalid_and_single_column(cuda_device, dtype):
     """Edge masks: no valid column at all (every index 0, as XLA's argmax of an
     all -1e30 column or row gives) and a single valid column (second = -1e30)."""
     rng = np.random.default_rng(72)
     a, b, va, _ = (torch.from_numpy(x).to(cuda_device) for x in _binary(rng, 200, 150))
-    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    a, b = a.to(dtype), b.to(dtype)
+    bf16 = dtype == torch.bfloat16
     for vb in (torch.zeros(150, dtype=torch.bool, device=cuda_device),
                torch.arange(150, device=cuda_device) == 77):
-        got = match.top2_mutual(a, b, va, vb, bf16=True)
-        ref = match.top2_mutual_plain(a, b, va, vb, bf16=True)
+        got = match.top2_mutual(a, b, va, vb, bf16=bf16)
+        ref = match.top2_mutual_plain(a, b, va, vb, bf16=bf16)
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             assert torch.equal(g, r)

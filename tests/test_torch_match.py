@@ -161,15 +161,15 @@ def test_cpu_tensors_take_plain_version_without_launch():
 
 GRID_SHAPES = [(2048, 2048, 256, 132), (1, 1, 256, 132), (63, 65, 100, 132),
                (129, 257, 64, 132), (2048, 20000, 256, 132), (5000, 300, 7, 114),
-               (77, 1001, 256, 8)]
+               (77, 1001, 256, 8), (2048, 2048, 128, 132), (300, 280, 130, 132)]
 
 
 @pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("na,nb,d,sms", GRID_SHAPES)
 def test_match_grid_covers_every_column_once(na, nb, d, sms, bf16):
     """The kernels' cut of a call: each column in exactly one split, no split empty,
-    every row in a row tile, the blocks within what fills the SMs, and a bf16 width
-    padded to TMA's 16-byte stride rule."""
+    every row in a row tile, the blocks within what fills the SMs (one per SM), and a
+    width padded to TMA's 16-byte stride rule (8 bf16 or 4 fp32 elements)."""
     g = tmatch.match_grid(na, nb, d, bf16, sms)
     covered = np.zeros(nb, np.int64)
     for s in range(g.splits):
@@ -179,19 +179,24 @@ def test_match_grid_covers_every_column_once(na, nb, d, sms, bf16):
     assert (covered == 1).all()
     assert (g.n_row_tiles - 1) * g.bm < na <= g.n_row_tiles * g.bm
     assert g.n_col_tiles == -(-nb // g.bn) and g.cols_per_split % g.bn == 0
-    per_sm = 1 if bf16 else 2
-    assert g.n_row_tiles * g.splits <= max(per_sm * sms, g.n_row_tiles)
-    if bf16:
-        assert g.bm == g.bn == 128
-        assert g.d_pad % 8 == 0 and d <= g.d_pad < d + 8 and (g.d_pad * 2) % 16 == 0
-    else:
-        assert g.bm == g.bn == 64 and g.d_pad == d
+    assert g.n_row_tiles * g.splits <= max(sms, g.n_row_tiles)
+    assert g.bm == g.bn == 128
+    step, elem = (8, 2) if bf16 else (4, 4)
+    assert g.d_pad % step == 0 and d <= g.d_pad < d + step and (g.d_pad * elem) % 16 == 0
 
 
 def test_match_grid_main_path_shape():
     """2048 x 2048 x 256 on 132 SMs: 16 row tiles x 8 splits of 2 column tiles."""
     g = tmatch.match_grid(2048, 2048, 256, True, 132)
     assert (g.n_row_tiles, g.splits, g.tiles_per_split, g.d_pad) == (16, 8, 2, 256)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_match_grid_fp32_path_shapes(d):
+    """fp32 at the SIFT path's 2048 x 2048 x 128 and the main path's width: the same
+    16 row tiles x 8 splits of 2 column tiles, 128 blocks on 132 SMs."""
+    g = tmatch.match_grid(2048, 2048, d, False, 132)
+    assert (g.n_row_tiles, g.splits, g.tiles_per_split, g.d_pad) == (16, 8, 2, d)
 
 
 def test_col_key_orders_values_then_lower_rows():

@@ -11,6 +11,7 @@ import torch
 from vo_tpu_torch.engine.pipeline import run_offline_vo
 from vo_tpu_torch.engine.vo import VOEngine
 from vo_tpu_torch.features.extractor import OrbLikeExtractor
+from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -47,6 +48,21 @@ def test_entry_points_raise_without_gpu(no_cuda):
         VOEngine()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         OrbLikeExtractor(max_kp=16)(imgs)
+
+
+def test_multiscale_extractor_gpu_default_and_unported_options(no_cuda):
+    """The SIFT config's extractor runs on the GPU unless asked for the CPU, and its
+    SURF options (not ported yet) raise."""
+    imgs = np.random.default_rng(62).uniform(0, 255, (2, 96, 128)).astype(np.float32)
+    ex = MultiScaleClassicExtractor(max_kp=32, n_scales=2, response="dog",
+                                    descriptor="gradhist", oriented=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ex(imgs)
+    feats = ex(imgs, device="cpu")
+    assert feats.desc.shape == (2, 32, 128) and feats.desc.dtype == torch.bfloat16
+    for kw in ({"response": "hessian"}, {"descriptor": "surf"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MultiScaleClassicExtractor(**kw)
 
 
 def test_entry_points_run_on_cpu_when_asked(no_cuda):

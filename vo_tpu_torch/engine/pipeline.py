@@ -11,7 +11,10 @@ import torch
 from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.engine.vo import VOConfig, VOEngine
 from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
+from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
 from vo_tpu_torch.geometry.camera import depth_to_3d_at
+
+Extractor = OrbLikeExtractor | MultiScaleClassicExtractor
 
 
 def _to_device(x, device, dtype=None) -> torch.Tensor:
@@ -19,8 +22,9 @@ def _to_device(x, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
-def extract_and_backproject(extractor: OrbLikeExtractor, images, depths, K):
-    """Batched features + per-frame keypoint 3D back-projection on ``images.device``.
+def extract_and_backproject(extractor: Extractor, images, depths, K):
+    """Batched features + per-frame keypoint 3D back-projection on ``images.device``,
+    with either extractor (single-scale, or the multi-scale SIFT-config one).
 
     images (F, H, W) gray or (F, H, W, 3) RGB; depths (F, H, W) fp32 metres or uint16
     millimetres (dequantised to metres here, on the device).
@@ -36,13 +40,15 @@ def run_offline_vo(
     depths,
     K,
     vo_config: VOConfig = VOConfig(),
-    extractor: OrbLikeExtractor | None = None,
+    extractor: Extractor | None = None,
     extraction_batch: int = 0,
     return_features: bool = False,
     device: str | torch.device | None = None,
 ):
     """Full pipeline on in-memory arrays -> (poses (F, 4, 4) np, diagnostics np).
 
+    ``extractor`` defaults to ``OrbLikeExtractor()``; ``MultiScaleClassicExtractor``
+    with ``matcher="ratio_float"`` is the SIFT config.
     Also returns (feats, kp3d) when ``return_features``. ``extraction_batch`` > 0
     extracts in chunks of that many frames to bound peak memory. Runs on ``device``
     (default cuda; raises if there is no GPU).

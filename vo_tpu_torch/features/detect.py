@@ -1,4 +1,5 @@
-"""Corner response, NMS and fixed-budget keypoint selection over (B, H, W) tensors.
+"""Corner and blob responses, NMS and fixed-budget keypoint selection over (B, H, W)
+tensors.
 
 Port of ``vo_tpu/features/detect.py``. Selection is index-exact with the JAX package:
 - the tile-median floor averages the two middle values of an even count, as
@@ -41,6 +42,12 @@ def shi_tomasi_response(gray: torch.Tensor, sigma_d: float = 1.0,
     half_tr = 0.5 * (ixx + iyy)
     disc = torch.sqrt(torch.clamp(half_tr * half_tr - (ixx * iyy - ixy * ixy), min=0.0))
     return half_tr - disc
+
+
+def dog_response(gray: torch.Tensor, sigma: float = 1.0, k: float = 1.6) -> torch.Tensor:
+    """|Difference of Gaussians| blob response over (B, H, W): SIFT's within-level
+    detector (the pyramid supplies the octaves); bright and dark blobs both count."""
+    return torch.abs(gaussian_blur(gray, k * sigma) - gaussian_blur(gray, sigma))
 
 
 def _gather_hw(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

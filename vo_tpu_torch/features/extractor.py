@@ -1,7 +1,7 @@
 """Batched feature extraction: images in, fixed-budget (kp, desc, score, valid) out.
 
-Port of ``vo_tpu/features/extractor.py`` for the main path: Harris or Shi-Tomasi
-response, fixed-budget detection, upright dense-packed BRIEF.
+Port of ``vo_tpu/features/extractor.py``: Harris, Shi-Tomasi or DoG response,
+fixed-budget detection, upright dense-packed BRIEF or upright gradhist descriptors.
 """
 
 from __future__ import annotations
@@ -14,9 +14,13 @@ import torch
 
 from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.features.dense_brief import BRIEF_BITS, upright_brief_descriptors
-from vo_tpu_torch.features.detect import (detect_keypoints, harris_response,
+from vo_tpu_torch.features.detect import (detect_keypoints, dog_response, harris_response,
                                           shi_tomasi_response)
+from vo_tpu_torch.features.gradhist import gradhist_descriptors
 from vo_tpu_torch.ops.image import rgb_to_gray
+
+_RESPONSES = {"harris": harris_response, "shi_tomasi": shi_tomasi_response,
+              "dog": dog_response}
 
 
 class Features(NamedTuple):
@@ -30,7 +34,9 @@ class Features(NamedTuple):
 
 @dataclass(frozen=True)
 class OrbLikeExtractor:
-    """Harris + upright BRIEF extractor; the same fields and defaults as the JAX one."""
+    """Single-scale corner or blob extractor; the same fields and defaults as the JAX
+    one. As there, ``oriented`` steers BRIEF only: gradhist is upright here (the
+    oriented variant runs in ``MultiScaleClassicExtractor``)."""
 
     max_kp: int = 2048
     nms_size: int = 5
@@ -38,16 +44,17 @@ class OrbLikeExtractor:
     border: int = 21  # >= brief patch radius + 1
     subpixel: bool = False
     bits: int = BRIEF_BITS
-    response: str = "harris"   # 'harris' | 'shi_tomasi'
+    response: str = "harris"   # 'harris' | 'shi_tomasi' | 'dog'
     oriented: bool = False
-    descriptor: str = "brief"
+    descriptor: str = "brief"  # 'brief' | 'gradhist'
 
     def __post_init__(self):
-        if self.response not in ("harris", "shi_tomasi"):
+        if self.response not in _RESPONSES:
             raise NotImplementedError(
                 f"response={self.response!r} is not ported yet (ROADMAP queue 1, "
                 "item 7: other front-ends on the same engine)")
-        if self.descriptor != "brief" or self.oriented:
+        if self.descriptor not in ("brief", "gradhist") or (
+                self.descriptor == "brief" and self.oriented):
             raise NotImplementedError(
                 f"descriptor={self.descriptor!r}, oriented={self.oriented} is not "
                 "ported yet (ROADMAP queue 1, item 7: other front-ends)")
@@ -62,12 +69,13 @@ class OrbLikeExtractor:
             images = torch.from_numpy(images)
         images = images.to(dev)
         gray = rgb_to_gray(images) if images.ndim == 4 else images.to(torch.float32)
-        resp_fn = harris_response if self.response == "harris" else shi_tomasi_response
-        resp = resp_fn(gray)
         kp, score, valid = detect_keypoints(
-            resp, max_kp=self.max_kp, nms_size=self.nms_size,
+            _RESPONSES[self.response](gray), max_kp=self.max_kp, nms_size=self.nms_size,
             rel_threshold=self.rel_threshold, border=self.border,
             subpixel=self.subpixel,
         )
-        desc = upright_brief_descriptors(gray, kp, valid, bits=self.bits)
+        if self.descriptor == "gradhist":
+            desc = gradhist_descriptors(gray, kp, valid)
+        else:
+            desc = upright_brief_descriptors(gray, kp, valid, bits=self.bits)
         return Features(kp=kp, desc=desc, score=score, valid=valid)

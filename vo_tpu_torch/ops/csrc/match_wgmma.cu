@@ -44,7 +44,12 @@
 namespace {
 
 using vo_match::col_key;
+using vo_match::mbar_arrive;
+using vo_match::mbar_expect_tx;
+using vo_match::mbar_wait;
 using vo_match::NEG;
+using vo_match::smem_u32;
+using vo_match::tma_load;
 using vo_match::Top2;
 
 constexpr int BM = 128;                  // rows per block: two warpgroups of 64
@@ -57,64 +62,6 @@ constexpr int A_BYTES = BM * BK * 2;     // 16 KiB
 constexpr int B_BYTES = BN * BK * 2;     // 16 KiB
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + slack to align to 1 KiB
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// Waits for the phase of the given parity to complete. A wait that lasts seconds is a
-// broken pipeline: it traps, so the caller gets an error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  uint32_t spins = 0;
-  do {
-    if (++spins == (1u << 28)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
-      "}\n" ::"r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// One (64 x 128)-element box at (x = K offset, y = row) into shared memory, 128B-swizzled.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // wgmma shared-memory descriptor of a K-major tile in the 128B-swizzled layout that
 // TMA writes: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused (1),
@@ -178,15 +125,11 @@ top2_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[STAGES];
   __shared__ __align__(8) uint64_t empty_bar[STAGES];
-  __shared__ bool last[2];
 
   uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const int tid = threadIdx.x;
-  const int n_row_tiles = gridDim.x;
-  const int splits = gridDim.y;
-  const int row_tile = blockIdx.x;
   const int split = blockIdx.y;
-  const int row0 = row_tile * BM;
+  const int row0 = blockIdx.x * BM;
   const int col_begin = split * tiles_per_split * BN;
   const int col_end = min(nb, col_begin + tiles_per_split * BN);
   const int n_tiles = (col_end - col_begin + BN - 1) / BN;
@@ -194,8 +137,8 @@ top2_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full_bar[s], 1);
-      mbar_init(&empty_bar[s], CONSUMERS / 32);
+      vo_match::mbar_init(&full_bar[s], 1);
+      vo_match::mbar_init(&empty_bar[s], CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -333,17 +276,8 @@ top2_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
 
     // Merge the four lanes of a row (quad), then write this split's partial rows.
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float b0 = __shfl_xor_sync(0xffffffffu, st0.best, off);
-      const float s0 = __shfl_xor_sync(0xffffffffu, st0.sec, off);
-      const int i0 = __shfl_xor_sync(0xffffffffu, st0.idx, off);
-      const float b1 = __shfl_xor_sync(0xffffffffu, st1.best, off);
-      const float s1 = __shfl_xor_sync(0xffffffffu, st1.sec, off);
-      const int i1 = __shfl_xor_sync(0xffffffffu, st1.idx, off);
-      vo_match::merge(st0, b0, s0, i0);
-      vo_match::merge(st1, b1, s1, i1);
-    }
+    vo_match::merge_lanes(st0, 1, 4);
+    vo_match::merge_lanes(st1, 1, 4);
     if (q == 0) {
       const size_t base = static_cast<size_t>(split) * na;
       if (r0 < na) {
@@ -359,98 +293,24 @@ top2_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
   }
 
-  // The last block of a row tile merges its splits (threads 0..127, one row each);
-  // the last block of a split writes its columns' argmax (the other threads, or all
-  // of them). Each resets what it consumed for the next call. The bar.sync makes the
-  // block's writes visible to the ticket threads, whose fence publishes them.
-  __syncthreads();
-  if (tid == 0 || tid == 32) {
-    __threadfence();
-    last[tid / 32] = tid == 0 ? atomicAdd(&tickets[row_tile], 1u) == splits - 1u
-                              : atomicAdd(&tickets[n_row_tiles + split], 1u) ==
-                                    static_cast<unsigned int>(n_row_tiles - 1);
-  }
-  __syncthreads();
-  const bool merge_rows = last[0];
-  if (merge_rows && tid < BM && row0 + tid < na) {
-    __threadfence();
-    const int r = row0 + tid;
-    Top2 s{__ldcg(part_best + r), __ldcg(part_sec + r), __ldcg(part_idx + r)};
-#pragma unroll 8
-    for (int p = 1; p < splits; ++p) {
-      const size_t o = static_cast<size_t>(p) * na + r;
-      vo_match::merge(s, __ldcg(part_best + o), __ldcg(part_sec + o), __ldcg(part_idx + o));
-    }
-    nn12[r] = s.idx;
-    top2[2 * r] = s.best;
-    top2[2 * r + 1] = s.sec;
-    if (tid == 0) tickets[row_tile] = 0u;
-  }
-  const int first = merge_rows ? BM : 0;
-  if (last[1] && tid >= first) {
-    __threadfence();
-    for (int c = col_begin + tid - first; c < col_end; c += THREADS - first) {
-      nn21[c] = vo_match::col_key_row(__ldcg(colkey + c));
-      colkey[c] = key_init;
-    }
-    if (tid == first) tickets[n_row_tiles + split] = 0u;
-  }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda: fetched through the runtime's entry-point
-// query, so the library links no libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// (rows, d) row-major bf16 in boxes of 128 rows x 64 elements, 128B swizzle, zero fill.
-CUresult encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* ptr, int rows,
-                    int d) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {BK, BM};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  vo_match::merge_across_blocks<BM, THREADS>(row0, na, col_begin, col_end, part_best,
+                                             part_sec, part_idx, colkey, tickets, nn12,
+                                             top2, nn21);
 }
 
 }  // namespace
 
-// Error codes: a cudaError_t, or -1 (cuTensorMapEncodeTiled not found), or
-// -1000 - CUresult (the tensor map was refused).
+// Error codes: a cudaError_t, or those of vo_match::encode_operands.
 extern "C" int vo_top2_mutual_wgmma(const void* A, const void* B, const uint8_t* va,
                                     const uint8_t* vb, int na, int nb, int d,
                                     int n_row_tiles, int splits, int tiles_per_split,
                                     float* part_best, float* part_sec, int* part_idx,
                                     unsigned long long* colkey, unsigned int* tickets,
                                     int* nn12, float* top2, int* nn21, void* stream) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return -1;
   CUtensorMap map_a, map_b;
-  CUresult res = encode_map(encode, &map_a, A, na, d);
-  if (res == CUDA_SUCCESS) res = encode_map(encode, &map_b, B, nb, d);
-  if (res != CUDA_SUCCESS) return -1000 - static_cast<int>(res);
+  const int res = vo_match::encode_operands(&map_a, &map_b, A, B, na, nb, d,
+                                            CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, BM);
+  if (res != 0) return res;
   const cudaError_t err = cudaFuncSetAttribute(
       top2_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);

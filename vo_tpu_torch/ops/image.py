@@ -4,6 +4,7 @@ Keypoint ranking downstream depends on the last bits of the corner response, so 
 filters repeat the JAX package's arithmetic exactly: zero-padded shift-and-add summed
 tap by tap in order (no ``F.conv2d``), and Gaussian taps computed on the CPU in fp32
 with a sequential sum, then applied as fp32 scalars on whatever device holds the image.
+The pyramid's resize is two dense fp32 products, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -61,3 +62,29 @@ def maxpool2d_same(img: torch.Tensor, size: int) -> torch.Tensor:
     """size x size max pool, stride 1, SAME, padded with -inf (the NMS block)."""
     pad = (size - 1) // 2
     return F.max_pool2d(img[:, None], size, stride=1, padding=pad)[:, 0]
+
+
+def _resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:
+    """(n_out, n_in) fp32 triangle-kernel interpolation matrix: half-pixel centres,
+    the kernel widened by the downscale factor (antialiased, as ``jax.image.resize``'s
+    'bilinear')."""
+    scale = n_in / n_out
+    width = max(scale, 1.0)
+    centers = (torch.arange(n_out, device=device) + 0.5) * scale - 0.5
+    src = torch.arange(n_in, device=device)
+    d = torch.abs(src[None, :] - centers[:, None]) / width
+    m = torch.clamp(1.0 - d, min=0.0)
+    return m / torch.sum(m, dim=1, keepdim=True)
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (B, H, W) or (B, H, W, C) as two dense fp32 products."""
+    Ho, Wo = out_hw
+    H, W = img.shape[1:3]
+    if (H, W) == (Ho, Wo):
+        return img
+    mh = _resize_matrix(H, Ho, img.device).to(img.dtype)
+    mw = _resize_matrix(W, Wo, img.device).to(img.dtype)
+    if img.ndim == 3:
+        return torch.einsum("oh,bhw,wp->bop", mh, img, mw.T)
+    return torch.einsum("oh,bhwc,wp->bopc", mh, img, mw.T)

@@ -6,8 +6,9 @@ matchers need, without materialising the (Na, Nb) similarity matrix:
 - on a CUDA tensor it launches one of two hand-written kernels (built with nvcc at
   first use, bound through ctypes) or raises. bf16 operands go to the tensor-core
   kernel in ``csrc/match_wgmma.cu`` (``launch_wgmma``), fp32 operands to the CUDA-core
-  kernel in ``csrc/match_kernel.cu`` (``launch_simt``). There is no fallback from the
-  card to the plain version or from one kernel to the other.
+  kernel in ``csrc/match_kernel.cu`` (``launch_simt``). Both take one launch per call,
+  cut the call alike (``match_grid``) and share their cached scratch. There is no
+  fallback from the card to the plain version or from one kernel to the other.
 
 ``launch_wgmma.launches`` and ``launch_simt.launches`` count kernel launches, so a run
 can show that its matches went through a kernel.
@@ -79,10 +80,9 @@ def load_library(path: str) -> ctypes.CDLL:
     """A built library with the argument types of both entry points set."""
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vo_top2_mutual_simt.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p]
-    lib.vo_top2_mutual_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                         p, p, p, p, p, p, p, p, p]
-    lib.vo_top2_mutual_simt.restype = lib.vo_top2_mutual_wgmma.restype = i
+    for fn in (lib.vo_top2_mutual_simt, lib.vo_top2_mutual_wgmma):
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
+        fn.restype = i
     return lib
 
 
@@ -127,15 +127,17 @@ class MatchGrid(NamedTuple):
 def match_grid(na: int, nb: int, d: int, bf16: bool, sms: int) -> MatchGrid:
     """The grid of a call on a card with ``sms`` SMs.
 
-    wgmma (bf16): 128 x 128 tiles, one block per SM (it holds ~130 KiB of shared
-    memory), D padded to a multiple of 8 (TMA needs 16-byte row strides). SIMT (fp32):
-    64 x 64 tiles, two blocks per SM, D as it is. The columns are cut into as many
-    splits as fill the SMs, none of them empty.
+    Both kernels: 128 x 128 tiles, one block per SM (each holds ~130 KiB of shared
+    memory for its operand ring), D padded to 16 bytes (TMA needs 16-byte row strides:
+    a multiple of 8 in bf16, of 4 in fp32). The columns are cut into as many splits as
+    fill the SMs, none of them empty.
     """
-    tile, per_sm, d_pad = (128, 1, -(-d // 8) * 8) if bf16 else (64, 2, d)
+    tile = 128
+    step = 8 if bf16 else 4
+    d_pad = -(-d // step) * step
     n_row_tiles = -(-na // tile)
     n_col_tiles = -(-nb // tile)
-    splits = min(max(1, (per_sm * sms) // n_row_tiles), n_col_tiles)
+    splits = min(max(1, sms // n_row_tiles), n_col_tiles)
     tiles_per_split = -(-n_col_tiles // splits)
     splits = -(-n_col_tiles // tiles_per_split)
     return MatchGrid(tile, tile, n_row_tiles, n_col_tiles, splits, tiles_per_split, d_pad)
@@ -201,41 +203,13 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def launch_simt(a, b, va, vb):
-    """The CUDA-core kernel on fp32 (Na, D) x (Nb, D): two launches (tiles, then the
-    merge of the splits) after a fill of the column keys."""
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"the SIMT kernel takes fp32 operands, got {a.dtype}, {b.dtype}")
-    na, nb, d = _check_operands(a, b, va, vb)
-    dev = a.device
-    g = match_grid(na, nb, d, False, _sms(dev))
-    part_best = torch.empty((g.splits, na), dtype=torch.float32, device=dev)
-    part_sec = torch.empty((g.splits, na), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((g.splits, na), dtype=torch.int32, device=dev)
-    colkey = torch.full((nb,), _col_key_init(), dtype=torch.int64, device=dev)
-    nn12, top2, nn21 = _outputs(na, nb, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _library().vo_top2_mutual_simt(
-            a.data_ptr(), b.data_ptr(), va.data_ptr(), vb.data_ptr(), na, nb, d,
-            g.splits, g.cols_per_split, part_best.data_ptr(), part_sec.data_ptr(),
-            part_idx.data_ptr(), colkey.data_ptr(), nn12.data_ptr(), top2.data_ptr(),
-            nn21.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"SIMT match kernel launch failed: CUDA error {err}")
-    launch_simt.launches += 1
-    return nn12, top2, nn21
-
-
-launch_simt.launches = 0
-
-# The wgmma kernel's scratch, per (device, stream): partial rows, column keys and
-# tickets. The kernel leaves the keys and tickets as it found them, so they are filled
-# only when the scratch is made or grown.
+# The kernels' scratch, per (device, stream): partial rows, column keys and tickets.
+# Each kernel leaves the keys and tickets as it found them, so they are filled only
+# when the scratch is made or grown, and both kernels share it.
 _scratch: dict = {}
 
 
-def _wgmma_scratch(dev, stream, n_part, nb, n_tickets):
+def _match_scratch(dev, stream, n_part, nb, n_tickets):
     key = (dev.index, stream)
     s = _scratch.get(key)
     if s is None or s["best"].numel() < n_part:
@@ -256,23 +230,21 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def launch_wgmma(a, b, va, vb):
-    """The tensor-core kernel on bf16 (Na, D) x (Nb, D): one launch. A D that is not a
-    multiple of 8 is padded with zero columns here, which leaves every product as it
-    was."""
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"the wgmma kernel takes bf16 operands, got {a.dtype}, {b.dtype}")
+def _launch(name, entry, a, b, va, vb, bf16):
+    """One launch of a kernel's C entry point on (Na, D) x (Nb, D). A D that is not a
+    multiple of 16 bytes is padded with zero columns here, which leaves every product
+    as it was."""
     na, nb, d = _check_operands(a, b, va, vb)
     dev = a.device
-    g = match_grid(na, nb, d, True, _sms(dev))
+    g = match_grid(na, nb, d, bf16, _sms(dev))
     if g.d_pad != d:
         a, b = F.pad(a, (0, g.d_pad - d)), F.pad(b, (0, g.d_pad - d))
     a, b = _aligned16(a), _aligned16(b)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    s = _wgmma_scratch(dev, stream, g.splits * na, nb, g.n_row_tiles + g.splits)
+    s = _match_scratch(dev, stream, g.splits * na, nb, g.n_row_tiles + g.splits)
     nn12, top2, nn21 = _outputs(na, nb, dev)
     with torch.cuda.device(dev):
-        err = _library().vo_top2_mutual_wgmma(
+        err = entry(
             a.data_ptr(), b.data_ptr(), va.data_ptr(), vb.data_ptr(), na, nb, g.d_pad,
             g.n_row_tiles, g.splits, g.tiles_per_split, s["best"].data_ptr(),
             s["sec"].data_ptr(), s["idx"].data_ptr(), s["colkey"].data_ptr(),
@@ -280,9 +252,29 @@ def launch_wgmma(a, b, va, vb):
             stream)
     if err != 0:
         _scratch.pop((dev.index, stream), None)   # a failed launch may leave it dirty
-        raise RuntimeError(f"wgmma match kernel launch failed: error {err}")
-    launch_wgmma.launches += 1
+        raise RuntimeError(f"{name} match kernel launch failed: error {err}")
     return nn12, top2, nn21
+
+
+def launch_simt(a, b, va, vb):
+    """The CUDA-core kernel on fp32 (Na, D) x (Nb, D): one launch."""
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"the SIMT kernel takes fp32 operands, got {a.dtype}, {b.dtype}")
+    out = _launch("SIMT", _library().vo_top2_mutual_simt, a, b, va, vb, False)
+    launch_simt.launches += 1
+    return out
+
+
+launch_simt.launches = 0
+
+
+def launch_wgmma(a, b, va, vb):
+    """The tensor-core kernel on bf16 (Na, D) x (Nb, D): one launch."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"the wgmma kernel takes bf16 operands, got {a.dtype}, {b.dtype}")
+    out = _launch("wgmma", _library().vo_top2_mutual_wgmma, a, b, va, vb, True)
+    launch_wgmma.launches += 1
+    return out
 
 
 launch_wgmma.launches = 0
