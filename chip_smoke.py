@@ -22,11 +22,22 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    oriented gradhist extractor and the ``ratio_float`` matcher (``bench.py:337-386``);
    asserts the gate and one SIMT launch per tracked frame; the plain-matcher engine on
    the same features passes the gate too; times extraction and the engine;
-7. timing: extraction, the engine, and the kernels (wgmma at 2048 x 2048 x 256 bf16;
+7. timing: extraction and the engine over the first 48 frames, and the kernels
+   (wgmma at 2048 x 2048 x 256 bf16;
    SIMT at 2048 x 2048 x 128 on the SIFT frames' descriptors and at 2048 x 2048 x 256
    on the main path's as fp32) against their plain versions, a library yardstick and
    the bound; one CUDA kernel per SIMT call under the profiler; then a profile of
-   extraction and the engine.
+   extraction and the engine;
+8. streaming, CLI and online: the frames written to disk in the JAX bench's
+   io-included format (gray PNG + ``<u2`` millimetre npy, ``bench.py:81-102``); the
+   ``vo_run`` CLI on them (native loader, sparse depth transfer, ``--eval``): the
+   gate, one wgmma launch per tracked frame, and ``run_offline_vo``'s poses on the
+   decoded frames; a ``--limit 96`` run's checkpoint resumed to the uninterrupted
+   poses; the SIFT config through the CLI (48 frames, SIMT launches only); ``OnlineVO``
+   on 16 frames against ``run_offline_vo``; then, over the first 48 frames, each
+   streaming pass (3 sparse, 1 float32, 1 uint16mm) followed by a pass of the
+   in-memory extract + engine, the loader's decode-only ceiling, and a profile of two
+   chunks of the sparse stream.
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
 line before it lists each kernel and shape with its launches, error, times and bound.
@@ -49,6 +60,7 @@ K = np.array([[721.53, 0.0, 609.55], [0.0, 721.53, 172.85], [0.0, 0.0, 1.0]], np
 
 F_FLOAT = 32           # depth of the float-mode path
 N_PASSES = 3           # timed passes per path (median)
+F_TIMED = 48           # frames of each timed pass
 
 # H100 SXM published dense peaks (NVIDIA data sheet) for the bounds of the kernels.
 PEAK_BF16_FLOPS = 989e12
@@ -65,22 +77,30 @@ def _card() -> str:
 
 def _device_profile(fn):
     """(device-busy ms, CUDA kernels launched, top kernels) of one ``fn()`` run under
-    torch.profiler; (None, None, []) when the trace holds no device time."""
+    torch.profiler; (None, None, []) when the trace holds no device time.
+
+    Traces the device activity only and reads the raw trace events: building the
+    profiler's event tree (``key_averages``) for the ~10,900 launches of each engine
+    step takes minutes.
+    """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    if not rows or busy_us <= 0:
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            count, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (count + 1, ns + e.duration_ns())
+    busy_ns = sum(ns for _, ns in by_name.values())
+    if busy_ns <= 0:
         return None, None, []
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:5]
-    return (busy_us / 1e3, sum(e.count for e in rows),
-            [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return (busy_ns / 1e6, sum(count for count, _ in by_name.values()),
+            [(name[:60], count, ns / 1e6) for name, (count, ns) in top])
 
 
 def _counts() -> dict:
@@ -232,20 +252,20 @@ def _gate(name, poses, accepted, gt, launches=None) -> bool:
     return sane
 
 
-def _timed_passes(extractor, engine, imgs_d, deps_d, Kd):
-    """Extraction and engine ms/frame over ``N_PASSES`` passes (median), and the
-    features of the last pass."""
+def _timed_passes(extractor, engine, imgs_d, deps_d, Kd, n_passes=N_PASSES):
+    """Extraction and engine ms/frame over ``n_passes`` passes (median) of the first
+    ``F_TIMED`` frames, and the features of the last pass."""
     import torch
 
     from vo_tpu_torch.engine.pipeline import extract_and_backproject
 
     t_ex, t_en = [], []
-    for _ in range(N_PASSES):
+    for _ in range(n_passes):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         chunks = [extract_and_backproject(extractor, imgs_d[s:s + EXTRACT_BATCH],
                                           deps_d[s:s + EXTRACT_BATCH], Kd)
-                  for s in range(0, F, EXTRACT_BATCH)]
+                  for s in range(0, F_TIMED, EXTRACT_BATCH)]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         feats = [torch.cat([c[0][i] for c in chunks]) for i in (0, 1, 3)]
@@ -254,8 +274,8 @@ def _timed_passes(extractor, engine, imgs_d, deps_d, Kd):
         t3 = time.perf_counter()
         engine.run_sequence(*feats, k3, Kd)
         torch.cuda.synchronize()
-        t_ex.append((t2 - t1) / F * 1e3)
-        t_en.append((time.perf_counter() - t3) / F * 1e3)
+        t_ex.append((t2 - t1) / F_TIMED * 1e3)
+        t_en.append((time.perf_counter() - t3) / F_TIMED * 1e3)
     return float(np.median(t_ex)), float(np.median(t_en)), t_ex, t_en, (*feats, k3)
 
 
@@ -271,6 +291,215 @@ def _profile_lines(card, stage, fn, per, wall_ms) -> None:
     for name, count, ms in top:
         print(f"  {stage} top kernel: {ms / per:.4f} ms/frame, {count / per:.0f}/frame, "
               f"{name}")
+
+
+def _ms_per_frame(seconds: float, n: int) -> float:
+    return seconds / n * 1e3
+
+
+def _streaming_phase(card, imgs, deps, gt) -> None:
+    """Phase 8: the port as users launch it, on the frames written to disk in the JAX
+    bench's io-included format (8-bit gray PNG + ``<u2`` millimetre npy) in a temporary
+    directory under the git-ignored ``vo_tpu_torch/_build/``, removed at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import vo_tpu_torch
+    from vo_tpu_torch.engine.online import OnlineVO
+    from vo_tpu_torch.engine.pipeline import run_offline_vo, run_offline_vo_streaming
+    from vo_tpu_torch.engine.vo import VOEngine
+    from vo_tpu_torch.io.dataset import write_gray_u16mm_dir
+    from vo_tpu_torch.io.native import NativeRGBDSequence, build_loader
+    from vo_tpu_torch.io.poses import write_kitti_txt
+    from vo_tpu_torch.runners import vo_run
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(vo_tpu_torch.__file__)),
+                             "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_seq_", dir=build_dir)
+    sub_s = {}
+    try:
+        t0 = time.perf_counter()
+        seq_dir = os.path.join(tmp, "seq")
+        write_gray_u16mm_dir(seq_dir, imgs, deps)
+        write_kitti_txt(os.path.join(tmp, "gt.txt"), gt)
+        t1 = time.perf_counter()
+        lib = build_loader()
+        sub_s["write_and_build"] = time.perf_counter() - t0
+        print(f"streaming: wrote {F} frames (gray PNG + <u2 mm npy) in {t1 - t0:.1f} s; "
+              f"native loader {lib} ready in {time.perf_counter() - t1:.1f} s")
+        t_checks = time.perf_counter()
+        # The frames as the loaders decode them: uint8 gray, millimetres as metres.
+        gray = np.clip(imgs, 0, 255).astype(np.uint8)
+        metres = np.round(np.clip(deps, 0.0, 65.535) * 1000.0).astype(np.uint16)
+        metres = metres.astype(np.float32) * 1e-3
+        kflat = ", ".join(repr(float(v)) for v in K.reshape(-1))
+
+        def yaml(name: str, extractor_lines: str) -> tuple[str, str]:
+            out = os.path.join(tmp, name)
+            path = out + ".yaml"
+            with open(path, "w") as f:
+                f.write(f"{extractor_lines}\nimage_path: {seq_dir}\n"
+                        f"camera_intrinsic_matrix: [{kflat}]\noutput_filename: {out}\n"
+                        f"gt_txt_file_path: {os.path.join(tmp, 'gt.txt')}\n"
+                        f"max_keypoints: 2048\nextraction_batch: {EXTRACT_BATCH}\n"
+                        f"pnp_n_hypotheses: 512\n")
+            return path, out + ".npy"
+
+        orb_yaml, orb_npy = yaml("cli", "feature_extractor: orb")
+        sparse_flags = ["--depth-transfer", "sparse", "--eval"]
+        cfg = vo_run.RunConfig.from_yaml(orb_yaml)
+
+        # The CLI, counted.
+        _reset_counts()
+        res = vo_run.run(["--config", orb_yaml] + sparse_flags)
+        counts = _counts()
+        if res.rc != 0 or res.loader != "native":
+            raise AssertionError(f"CLI run: rc {res.rc}, loader {res.loader!r}")
+        if counts != {"wgmma": F - 1, "simt": 0}:
+            raise AssertionError(f"CLI run launches {counts}, expected {F - 1} wgmma, 0 simt")
+        written = np.load(orb_npy)
+        if written.shape != (F, 4, 4) or not np.array_equal(written, res.poses):
+            raise AssertionError(f"CLI output {orb_npy}: shape {written.shape}")
+        if not _gate("CLI, native loader, sparse depth", res.poses, res.diag.accepted, gt,
+                     counts["wgmma"]):
+            raise AssertionError("CLI run failed the trajectory gate")
+
+        # The in-memory pipeline on the decoded frames gives the CLI's poses.
+        ref_poses, ref_diag = run_offline_vo(
+            gray, metres, K, vo_config=cfg.vo, extractor=vo_run.build_extractor(cfg),
+            extraction_batch=EXTRACT_BATCH, device="cuda")
+        diff = float(np.abs(res.poses - ref_poses).max())
+        same_diag = all(np.array_equal(a, b) for a, b in zip(res.diag, ref_diag))
+        print(f"CLI vs run_offline_vo on the decoded frames: largest pose difference "
+              f"{diff:.3e}, identical = {diff == 0.0}, diagnostics equal = {same_diag}")
+        if diff > 1e-5:
+            raise AssertionError("the CLI's poses differ from run_offline_vo's")
+
+        # An interrupted run (a finished run rewrites its checkpoint at its last frame),
+        # then a resume over the whole sequence.
+        ck = os.path.join(tmp, "ck.npz")
+        part_yaml, _ = yaml("part", "feature_extractor: orb")
+        part = vo_run.run(["--config", part_yaml, "--limit", "96", "--checkpoint", ck,
+                           "--checkpoint-every", "64"] + sparse_flags)
+        with np.load(ck) as blob:
+            next_frame = int(blob["next_frame"])
+        if part.rc != 0 or next_frame != 96:
+            raise AssertionError(f"interrupted run: rc {part.rc}, checkpoint at {next_frame}")
+        _reset_counts()
+        resumed = vo_run.run(["--config", part_yaml, "--resume", ck] + sparse_flags)
+        counts_r = _counts()
+        diff_r = float(np.abs(resumed.poses - res.poses).max())
+        print(f"resume from frame {next_frame}: launches {counts_r}, largest pose difference "
+              f"to the uninterrupted run {diff_r:.3e}, identical = {diff_r == 0.0}")
+        if counts_r != {"wgmma": F - 96, "simt": 0} or diff_r > 1e-5:
+            raise AssertionError("the resumed run does not reproduce the uninterrupted one")
+
+        # The SIFT config through the CLI.
+        sift_yaml, _ = yaml("sift", "feature_extractor: sift\noctaves: 4\noriented: true")
+        _reset_counts()
+        sres = vo_run.run(["--config", sift_yaml, "--depth-transfer", "float32",
+                           "--limit", "48"])
+        counts_s = _counts()
+        print(f"CLI, SIFT config, 48 frames: launches {counts_s}, accept "
+              f"{float(np.mean(sres.diag.accepted)):.3f}")
+        if (counts_s != {"wgmma": 0, "simt": 47} or sres.poses.shape != (48, 4, 4)
+                or not np.isfinite(sres.poses).all()):
+            raise AssertionError("the SIFT config through the CLI failed")
+
+        # The per-frame API on the first 16 decoded frames.
+        n_on = 16
+        _reset_counts()
+        online = OnlineVO(K, config=cfg.vo, extractor=vo_run.build_extractor(cfg))
+        on_poses = np.stack([online.process_frame(gray[i], metres[i], i)
+                             for i in range(n_on)])
+        counts_o = _counts()
+        diff_o = float(np.abs(on_poses - ref_poses[:n_on]).max())
+        print(f"OnlineVO, {n_on} frames: launches {counts_o}, largest pose difference to "
+              f"run_offline_vo {diff_o:.3e}")
+        if counts_o != {"wgmma": n_on - 1, "simt": 0} or diff_o > 1e-4:
+            raise AssertionError("OnlineVO disagrees with run_offline_vo")
+
+        sub_s["checks"] = time.perf_counter() - t_checks
+
+        # Timing over the first F_TIMED frames. The engine's wall time drifts with the
+        # host, so each streaming pass is followed by a pass of the in-memory extract
+        # + engine on the decoded frames, already on the card, and the two are
+        # compared. Every mode reads gray images; the loader emits millimetres where
+        # the mode sends them.
+        t0 = time.perf_counter()
+        n_t = F_TIMED
+
+        def stream(mode: str, limit: int):
+            nat = NativeRGBDSequence.try_open(seq_dir)
+            depth = "f32" if mode == "float32" else "u16mm"
+            stats: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                run_offline_vo_streaming(
+                    nat.iter_batches(EXTRACT_BATCH, limit=limit, gray=True, depth=depth),
+                    limit, K, vo_config=cfg.vo, extractor=vo_run.build_extractor(cfg),
+                    transfer_depth=mode, device="cuda", stats=stats)
+            finally:
+                nat.close()
+            return time.perf_counter() - t0, stats
+
+        Kd = torch.from_numpy(K).cuda()
+        gray_d = torch.from_numpy(gray[:n_t]).cuda()
+        metres_d = torch.from_numpy(metres[:n_t]).cuda()
+        pairs: dict = {}   # mode -> [(streaming stats, in-memory extract ms, engine ms)]
+        for i, mode in enumerate(["sparse"] * N_PASSES + ["float32", "uint16mm"]):
+            dt, st = stream(mode, n_t)
+            st["ms"] = _ms_per_frame(dt, n_t)
+            _, _, (ex_ms,), (en_ms,), _ = _timed_passes(
+                vo_run.build_extractor(cfg), VOEngine(cfg.vo, device="cuda"), gray_d,
+                metres_d, Kd, n_passes=1)
+            pairs.setdefault(mode, []).append((st, ex_ms, en_ms))
+            print(f"timing [{card}] pair {i + 1}, {mode}: streaming {st['ms']:.3f} "
+                  f"ms/frame (engine {_ms_per_frame(st['engine_s'], n_t):.3f}, queue wait "
+                  f"{st['queue_wait_s']:.3f} s, sync wait {st['sync_wait_s']:.3f} s) | "
+                  f"in-memory {ex_ms + en_ms:.3f} ms/frame (extract {ex_ms:.3f}, engine "
+                  f"{en_ms:.3f}) -> {(st['ms'] / (ex_ms + en_ms) - 1.0) * 100:+.1f} %")
+
+        # Decode-only ceiling of the native loader, in each format used above.
+        ceiling = {}
+        for depth in ("u16mm", "f32"):
+            nat = NativeRGBDSequence.try_open(seq_dir)
+            t1 = time.perf_counter()
+            for _ in nat.iter_batches(EXTRACT_BATCH, gray=True, depth=depth):
+                pass
+            ceiling[depth] = F / (time.perf_counter() - t1)
+            nat.close()
+
+        for mode, runs in pairs.items():
+            ms = float(np.median([st["ms"] for st, _, _ in runs]))
+            mem_ms = float(np.median([ex + en for _, ex, en in runs]))
+            eng = float(np.median([_ms_per_frame(st["engine_s"], n_t) for st, _, _ in runs]))
+            mem_eng = float(np.median([en for _, _, en in runs]))
+            st = runs[-1][0]
+            print(f"timing [{card}] streaming {mode}, first {n_t} frames ({len(runs)} "
+                  f"pass(es), medians): {ms:.3f} ms/frame = {1e3 / ms:.2f} fps against "
+                  f"in-memory {mem_ms:.3f} ms/frame ({(ms / mem_ms - 1.0) * 100:+.1f} %); "
+                  f"engine {eng:.3f} against {mem_eng:.3f} ms/frame; up "
+                  f"{st['h2d_bytes'] / n_t:.0f} B/frame, down {st['d2h_bytes'] / n_t:.0f} "
+                  f"B/frame; queue wait "
+                  f"{[round(s['queue_wait_s'], 3) for s, _, _ in runs]} s per pass")
+        print(f"timing [{card}] native loader decode only, {F} frames: gray + u16mm "
+              f"{ceiling['u16mm']:.1f} fps, gray + f32 {ceiling['f32']:.1f} fps")
+        sub_s["timing"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        sparse_ms = float(np.median([st["ms"] for st, _, _ in pairs["sparse"]]))
+        _profile_lines(card, "streaming sparse, 2 chunks",
+                       lambda: stream("sparse", 2 * EXTRACT_BATCH),
+                       2 * EXTRACT_BATCH, sparse_ms)
+        sub_s["profile"] = time.perf_counter() - t0
+        print("phase 8 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -537,6 +766,11 @@ def main() -> None:
     _profile_lines(card, "SIFT extract", lambda: extract_and_backproject(sift, *batch),
                    EXTRACT_BATCH, s_extract_ms)
     phase_s["profile"] = time.perf_counter() - t0
+
+    # Phase 8: streaming, the CLI and the per-frame API.
+    t0 = time.perf_counter()
+    _streaming_phase(card, imgs, deps, gt)
+    phase_s["streaming_cli_online"] = time.perf_counter() - t0
 
     for path, (ex_ms, en_ms, ex, en) in (("main path", (extract_ms, engine_ms, t_ex, t_en)),
                                          ("SIFT path", (s_extract_ms, s_engine_ms, s_ex, s_en))):

@@ -170,3 +170,48 @@ def test_kernel_rejects_non_contiguous(cuda_device):
     a = torch.ones(64, 512, device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         match.top2_mutual(a, a.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transfer", ["sparse", "float32"])
+def test_native_loader_streaming_equals_in_memory(cuda_device, tmp_path, transfer):
+    """16 frames written in the bench's format (gray PNG + uint16 millimetre npy), read
+    by the native loader as the CLI reads them (gray + u16mm in sparse mode, RGB + fp32
+    otherwise) and streamed on the card: the poses of ``run_offline_vo`` on the decoded
+    frames, one wgmma launch per tracked frame."""
+    from vo_tpu_torch.engine.pipeline import run_offline_vo, run_offline_vo_streaming
+    from vo_tpu_torch.engine.vo import VOConfig
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.io.dataset import write_gray_u16mm_dir
+    from vo_tpu_torch.io.native import NativeRGBDSequence
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    n = 16
+    K = np.array([[260.0, 0.0, 160.0], [0.0, 260.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
+    imgs, deps, _ = render_sequence(n, K, H=240, W=320, step=0.8, yaw_rate=0.01)
+    write_gray_u16mm_dir(str(tmp_path), imgs, deps)
+    cfg = VOConfig(matcher="ratio_binary", kf_min_matches=60, kf_min_inliers=30,
+                   pnp=PnPConfig(min_inliers=15, n_hypotheses=256))
+    ex = OrbLikeExtractor(max_kp=512)
+    sparse = transfer == "sparse"
+    seq = NativeRGBDSequence.try_open(str(tmp_path))
+    before = match.launch_wgmma.launches
+    stats = {}
+    poses, diag, _ = run_offline_vo_streaming(
+        seq.iter_batches(4, gray=sparse, depth="u16mm" if sparse else "f32"), n, K,
+        vo_config=cfg, extractor=ex, transfer_depth=transfer, device=cuda_device,
+        stats=stats)
+    seq.close()
+    assert match.launch_wgmma.launches - before == n - 1
+    assert stats["chunks"] == 4
+
+    gray = np.clip(imgs, 0, 255).astype(np.uint8)
+    if not sparse:
+        gray = np.repeat(gray[..., None], 3, axis=-1)
+    metres = np.round(np.clip(deps, 0.0, 65.535) * 1000.0).astype(np.uint16)
+    ref, ref_diag = run_offline_vo(gray, metres.astype(np.float32) * 1e-3, K,
+                                   vo_config=cfg, extractor=ex, extraction_batch=4,
+                                   device=cuda_device)
+    assert np.abs(poses - ref).max() <= 1e-5
+    np.testing.assert_array_equal(diag.n_matches, ref_diag.n_matches)

@@ -112,6 +112,26 @@ def test_extractor_unported_options_raise():
     TExtractor(response="dog", descriptor="gradhist")
 
 
+@pytest.mark.parametrize("multiscale", [False, True], ids=["orb_like", "multiscale"])
+def test_unknown_response_takes_shi_tomasi(multiscale):
+    """Any response name other than harris, dog and hessian takes the Shi-Tomasi
+    response in both packages: same keypoints on the same frames, and the same as
+    naming shi_tomasi."""
+    from vo_tpu.features.pyramid import MultiScaleClassicExtractor as JMulti
+    from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor as TMulti
+
+    imgs, _, _ = render_sequence(2, K, H=240, W=320, step=0.8, yaw_rate=0.01)
+    jcls, tcls, kw = ((JMulti, TMulti, {"n_scales": 2}) if multiscale
+                      else (JExtractor, TExtractor, {}))
+    j = jcls(max_kp=256, response="min_eig", **kw)(jnp.asarray(imgs))
+    t = tcls(max_kp=256, response="min_eig", **kw)(imgs, device="cpu")
+    np.testing.assert_array_equal(t.kp.numpy(), np.asarray(j.kp))
+    np.testing.assert_array_equal(t.valid.numpy(), np.asarray(j.valid))
+    assert t.valid.sum() > 200
+    st = tcls(max_kp=256, response="shi_tomasi", **kw)(imgs, device="cpu")
+    np.testing.assert_array_equal(t.kp.numpy(), st.kp.numpy())
+
+
 @pytest.mark.parametrize("response", ["harris", "shi_tomasi"])
 def test_extractor_on_rendered_frames(response):
     """Full extractor (jitted in the JAX package) on rendered frames: keypoints,

@@ -50,6 +50,27 @@ def test_entry_points_raise_without_gpu(no_cuda):
         OrbLikeExtractor(max_kp=16)(imgs)
 
 
+def test_streaming_online_and_cli_raise_without_gpu(no_cuda, tmp_path):
+    """The streaming runner, the per-frame API and the CLI default to the GPU too, and
+    raise before reading a frame."""
+    from vo_tpu_torch.engine.online import OnlineVO
+    from vo_tpu_torch.engine.pipeline import run_offline_vo_streaming
+    from vo_tpu_torch.runners import synthetic_demo, vo_run
+
+    K = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OnlineVO(K)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_offline_vo_streaming(iter(()), 4, K)
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f"image_path: {tmp_path}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vo_run.main(["--config", str(cfg)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_demo.main(["--frames", "2"])
+    assert OnlineVO(K, device="cpu").device.type == "cpu"
+
+
 def test_multiscale_extractor_gpu_default_and_unported_options(no_cuda):
     """The SIFT config's extractor runs on the GPU unless asked for the CPU, and its
     SURF options (not ported yet) raise."""

@@ -19,8 +19,17 @@ from vo_tpu_torch.features.detect import (detect_keypoints, dog_response, harris
 from vo_tpu_torch.features.gradhist import gradhist_descriptors
 from vo_tpu_torch.ops.image import rgb_to_gray
 
-_RESPONSES = {"harris": harris_response, "shi_tomasi": shi_tomasi_response,
-              "dog": dog_response}
+_RESPONSES = {"harris": harris_response, "dog": dog_response}
+
+
+def response_fn(name: str):
+    """The detector response for ``name``: as in the JAX package, any name other than
+    'harris', 'dog' and 'hessian' takes the Shi-Tomasi response."""
+    if name == "hessian":
+        raise NotImplementedError(
+            "response='hessian' is not ported yet (ROADMAP queue 1, item 7: "
+            "features/surf.py)")
+    return _RESPONSES.get(name, shi_tomasi_response)
 
 
 class Features(NamedTuple):
@@ -44,15 +53,12 @@ class OrbLikeExtractor:
     border: int = 21  # >= brief patch radius + 1
     subpixel: bool = False
     bits: int = BRIEF_BITS
-    response: str = "harris"   # 'harris' | 'shi_tomasi' | 'dog'
+    response: str = "harris"   # 'harris' | 'dog'; any other name: Shi-Tomasi
     oriented: bool = False
     descriptor: str = "brief"  # 'brief' | 'gradhist'
 
     def __post_init__(self):
-        if self.response not in _RESPONSES:
-            raise NotImplementedError(
-                f"response={self.response!r} is not ported yet (ROADMAP queue 1, "
-                "item 7: other front-ends on the same engine)")
+        response_fn(self.response)
         if self.descriptor not in ("brief", "gradhist") or (
                 self.descriptor == "brief" and self.oriented):
             raise NotImplementedError(
@@ -70,7 +76,7 @@ class OrbLikeExtractor:
         images = images.to(dev)
         gray = rgb_to_gray(images) if images.ndim == 4 else images.to(torch.float32)
         kp, score, valid = detect_keypoints(
-            _RESPONSES[self.response](gray), max_kp=self.max_kp, nms_size=self.nms_size,
+            response_fn(self.response)(gray), max_kp=self.max_kp, nms_size=self.nms_size,
             rel_threshold=self.rel_threshold, border=self.border,
             subpixel=self.subpixel,
         )

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.features.dense_brief import BRIEF_BITS, upright_brief_descriptors
 from vo_tpu_torch.features.detect import _top_k, detect_keypoints
-from vo_tpu_torch.features.extractor import _RESPONSES, Features
+from vo_tpu_torch.features.extractor import Features, response_fn
 from vo_tpu_torch.features.gradhist import gradhist_descriptors, oriented_gradhist_descriptors
 from vo_tpu_torch.ops.image import resize_bilinear, rgb_to_gray
 
@@ -31,7 +31,7 @@ class MultiScaleClassicExtractor:
     max_kp: int = 2048
     n_scales: int = 4
     scale_f: float = 2 ** 0.5
-    response: str = "harris"      # 'harris' | 'shi_tomasi' | 'dog'
+    response: str = "harris"      # 'harris' | 'dog'; any other name: Shi-Tomasi
     descriptor: str = "brief"     # 'brief' | 'gradhist'
     oriented: bool = False        # gradhist only: dominant-orientation normalisation
     nms_size: int = 5
@@ -43,10 +43,7 @@ class MultiScaleClassicExtractor:
     level_budget_decay: float = 1.0
 
     def __post_init__(self):
-        if self.response not in _RESPONSES:
-            raise NotImplementedError(
-                f"response={self.response!r} is not ported yet (ROADMAP queue 1, "
-                "item 7: features/surf.py)")
+        response_fn(self.response)
         if self.descriptor not in ("brief", "gradhist"):
             raise NotImplementedError(
                 f"descriptor={self.descriptor!r} is not ported yet (ROADMAP queue 1, "
@@ -73,7 +70,7 @@ class MultiScaleClassicExtractor:
             g = gray if lvl == 0 else resize_bilinear(gray, (Hs, Ws))
             lvl_kp = max(int(self.max_kp * self.level_budget_decay ** lvl), 128)
             kp, score, valid = detect_keypoints(
-                _RESPONSES[self.response](g), max_kp=lvl_kp, nms_size=self.nms_size,
+                response_fn(self.response)(g), max_kp=lvl_kp, nms_size=self.nms_size,
                 rel_threshold=self.rel_threshold, border=self.border,
                 subpixel=self.subpixel)
             descs.append(self._describe(g, kp, valid))
