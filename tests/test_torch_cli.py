@@ -1,6 +1,7 @@
 """The port's entry points as users launch them: ``vo_run`` on a directory of frames
 (against the JAX package's ``vo_run`` on the same directory and YAML), resuming
-through the CLI, the options not ported yet, and the per-frame ``OnlineVO``.
+through the CLI, ``--refine`` with ``--save-odometry``, the options not ported yet, and
+the per-frame ``OnlineVO``.
 
 Configuration as tests/test_torch_engine.py (10 rendered frames, 240 x 320, 512
 keypoints, 256 hypotheses), streamed in batches of 4. Tolerances: against JAX,
@@ -32,6 +33,7 @@ from vo_tpu.runners import vo_run as jvo_run
 from vo_tpu.utils.synthetic import render_sequence
 from vo_tpu_torch.engine.online import OnlineVO
 from vo_tpu_torch.engine.pipeline import run_offline_vo
+from vo_tpu_torch.engine.refine import refine_full
 from vo_tpu_torch.io.dataset import write_gray_u16mm_dir
 from vo_tpu_torch.port_state import config_from_jax
 from vo_tpu_torch.runners import vo_run
@@ -179,17 +181,42 @@ def test_cli_resume(seq, port_cli):
     np.testing.assert_array_equal(np.load(seq / "resumed.npy"), port_cli.poses)
 
 
-@pytest.mark.parametrize("case", ["refine", "save_odometry", "visualize", "surf", "r2d2"])
+@pytest.mark.parametrize("retain", ["all", "sparse"])
+def test_cli_refine_and_save_odometry(seq, port_cli, retain, capsys):
+    """``--refine --save-odometry``: the written poses are ``refine_full``'s on the
+    CLI's own odometry and features (``feat_rows`` with sparse retention), and the
+    odometry file is its ``refined_odometry``. The straight drive revisits nothing, so
+    the adaptive branch leaves the odometry as it is."""
+    name, odo = f"refined_{retain}", str(seq / f"odometry_{retain}")
+    res = vo_run.run(["--config", _yaml(seq, name), "--device", "cpu", "--refine",
+                      "--save-odometry", odo, "--retain", retain] + SPARSE)
+    assert res.rc == 0
+    out = capsys.readouterr().out
+    assert "[refine] pose graph: 0 loop edges" in out and "odometry-stage" in out
+    np.testing.assert_array_equal(res.odometry, port_cli.poses)
+    feats, kp3d, rows = res.features
+    assert (feats.kp.shape[0] < F) == (retain == "sparse") and len(rows) == feats.kp.shape[0]
+    closed, info = refine_full(res.odometry, feats.kp, feats.desc, feats.valid, kp3d, K,
+                               diag_promoted=res.diag.promoted_keyframe,
+                               feat_rows=None if retain == "all" else rows, device="cpu")
+    np.testing.assert_array_equal(res.poses, closed)
+    np.testing.assert_array_equal(np.load(seq / f"{name}.npy"), closed)
+    np.testing.assert_array_equal(np.load(odo + ".npy"), info["refined_odometry"])
+    np.testing.assert_array_equal(res.refine["refined_odometry"], info["refined_odometry"])
+    assert res.refine["keyframes"].tolist() == info["keyframes"].tolist()
+
+
+@pytest.mark.parametrize("case", ["visualize", "surf", "r2d2"])
 def test_unported_options_raise_before_reading(tmp_path, case):
     """Each raises NotImplementedError naming its ROADMAP item, before any frame is
-    read (the image path does not even exist)."""
+    read (the image path does not even exist), with ``--refine`` or without."""
     extra = {"visualize": "visualize_results: true\n",
              "surf": "feature_extractor: surf\n", "r2d2": "feature_extractor: r2d2\n"}
     cfg = tmp_path / "cfg.yaml"
-    cfg.write_text(f"image_path: {tmp_path / 'missing'}\n" + extra.get(case, ""))
-    flags = {"refine": ["--refine"], "save_odometry": ["--save-odometry", "x"]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vo_run.main(["--config", str(cfg), "--device", "cpu"] + flags.get(case, []))
+    cfg.write_text(f"image_path: {tmp_path / 'missing'}\n" + extra[case])
+    for flags in ([], ["--refine", "--save-odometry", str(tmp_path / "odo")]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            vo_run.main(["--config", str(cfg), "--device", "cpu"] + flags)
 
 
 def test_cli_empty_directory(tmp_path):

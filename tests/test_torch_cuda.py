@@ -1,4 +1,5 @@
-"""The CUDA match kernels against their plain PyTorch version, on the card.
+"""The CUDA match kernels against their plain PyTorch version, and the refinement
+layer's solvers and pair verification against the CPU, on the card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine with only
 PyTorch and the CUDA toolkit:
@@ -10,7 +11,9 @@ here skips. bf16 cases go through the wgmma kernel (``launch_wgmma``), fp32 case
 through the SIMT kernel (``launch_simt``). Binary +-1 descriptors, in bf16 or fp32,
 give integer similarities: nn12, nn21 and top2 must be exactly equal. Float unit
 vectors sum fp32 products in another order: top2 within 1e-5, nn12 equal wherever
-best - second > 1e-4.
+best - second > 1e-4. Bundle adjustment and the pose graph sum blocks with atomics on
+the card (``index_add_``): held to the CPU's result within rtol 1e-4 of each array's
+scale, never to identical bits.
 """
 
 import numpy as np
@@ -215,3 +218,132 @@ def test_native_loader_streaming_equals_in_memory(cuda_device, tmp_path, transfe
                                    device=cuda_device)
     assert np.abs(poses - ref).max() <= 1e-5
     np.testing.assert_array_equal(diag.n_matches, ref_diag.n_matches)
+
+
+def _ba_arrays(rng, P=6, L=120, M=80):
+    """Cameras on an arc over a point cloud (tests/test_ba.py), noisy start, rgbd depth."""
+    from vo_tpu_torch.geometry.se3 import se3_exp
+
+    def pose(xi):
+        return se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy()
+
+    K = np.array([[400.0, 0.0, 320.0], [0.0, 400.0, 180.0], [0.0, 0.0, 1.0]], np.float32)
+    pts = np.stack([rng.uniform(-8, 8, L), rng.uniform(-4, 4, L),
+                    rng.uniform(8, 25, L)], -1).astype(np.float32)
+    gt = np.stack([pose([-0.5 * p, 0.02 * p, 0.1 * p, 0.0, 0.04 * p, 0.0]) for p in range(P)])
+    obs_lm = np.stack([rng.choice(L, M, replace=False) for _ in range(P)]).astype(np.int32)
+    Y = np.einsum("pij,pmj->pmi", gt[:, :3, :3], pts[obs_lm]) + gt[:, None, :3, 3]
+    uv = Y[..., :2] / Y[..., 2:] * K[0, 0] + K[:2, 2] + rng.normal(0, 0.3, (P, M, 2))
+    init = gt.copy()
+    for p in range(1, P):
+        init[p] = pose(np.concatenate([rng.normal(0, 0.1, 3), rng.normal(0, 0.02, 3)])) @ gt[p]
+    return dict(poses=init, points=pts + rng.normal(0, 0.05, (L, 3)).astype(np.float32),
+                obs_lm=obs_lm, obs_uv=uv.astype(np.float32), obs_valid=Y[..., 2] > 0, K=K,
+                obs_z=Y[..., 2].astype(np.float32))
+
+
+def _close(got, ref, rtol=1e-4):
+    got, ref = (np.asarray(x.cpu() if torch.is_tensor(x) else x, np.float64) for x in (got, ref))
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * max(np.abs(ref).max(), 1e-6))
+
+
+@pytest.mark.cuda
+def test_bundle_adjust_and_pose_graph_match_the_cpu(cuda_device):
+    from vo_tpu_torch.ba import BAConfig, bundle_adjust, optimize_pose_graph
+    from vo_tpu_torch.geometry.se3 import se3_exp
+    from vo_tpu_torch.port_state import ba_problem_from_numpy
+
+    arrays = _ba_arrays(np.random.default_rng(81))
+    cpu = bundle_adjust(ba_problem_from_numpy(arrays, "cpu"), BAConfig(), device="cpu")
+    gpu = bundle_adjust(ba_problem_from_numpy(arrays, cuda_device), BAConfig(),
+                        device=cuda_device)
+    assert gpu[0].device.type == cuda_device.type
+    for g, c in zip(gpu[:2], cpu[:2]):
+        _close(g, c)
+    for k in ("costs", "final_cost", "mean_reproj"):
+        _close(gpu[2][k], cpu[2][k])
+
+    # a 40-node chain with a loop edge, isotropic and (E, 6) weights
+    rng = np.random.default_rng(82)
+    N = 40
+    steps = np.tile(np.eye(4, dtype=np.float32), (N - 1, 1, 1))
+    steps[:, 2, 3] = 1.0
+    noise = rng.normal(0, [0.05] * 3 + [0.01] * 3, (N - 1, 6))
+    zs = list(se3_exp(torch.tensor(noise, dtype=torch.float32)).numpy() @ steps)
+    init = [np.eye(4, dtype=np.float32)]
+    for z in zs:
+        init.append(init[-1] @ z)
+    gt_end = np.eye(4, dtype=np.float32)
+    gt_end[2, 3] = N - 1
+    zs.append(gt_end)
+    edges = np.array([(i, i + 1) for i in range(N - 1)] + [(0, N - 1)])
+    w6 = np.ones((N, 6))
+    w6[:-1, 3:] = 1000.0
+    w6[-1] = 20.0
+    for w in (np.r_[np.ones(N - 1), 20.0], w6):
+        args = (np.stack(init), edges, np.stack(zs), w.astype(np.float32))
+        opt_c, cost_c = optimize_pose_graph(*args, device="cpu")
+        opt_g, cost_g = optimize_pose_graph(*args, device=cuda_device)
+        _close(opt_g, opt_c)
+        _close(cost_g[:10], cost_c[:10])
+
+
+@pytest.mark.cuda
+def test_singular_solves_give_nan_without_raising(cuda_device):
+    """No valid observation and no damping (BA), a node without edges (pose graph):
+    the solve is singular, its step non-finite and rejected, and nothing raises."""
+    from vo_tpu_torch.ba import BAConfig, bundle_adjust, optimize_pose_graph
+    from vo_tpu_torch.ba.pose_graph import PoseGraphConfig
+    from vo_tpu_torch.port_state import ba_problem_from_numpy
+
+    arrays = _ba_arrays(np.random.default_rng(83), P=4, L=20, M=8)
+    arrays["obs_valid"][:] = False
+    poses, _, info = bundle_adjust(ba_problem_from_numpy(arrays, cuda_device),
+                                   BAConfig(iterations=3, damping_init=0.0),
+                                   device=cuda_device)
+    costs = info["costs"].cpu().numpy()
+    assert not np.isfinite(costs[:, 1]).any()
+    np.testing.assert_array_equal(poses.cpu().numpy(), arrays["poses"])
+
+    init = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    init[:, 2, 3] = [0.0, 1.0, 2.0]
+    rel = np.eye(4, dtype=np.float32)
+    rel[2, 3] = 1.1
+    opt, costs = optimize_pose_graph(init, np.array([[0, 1]]), rel[None],
+                                     np.ones(1, np.float32),
+                                     PoseGraphConfig(iterations=3, damping=0.0),
+                                     device=cuda_device)
+    np.testing.assert_array_equal(opt.cpu().numpy(), init)
+    assert np.isfinite(costs.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_pair_verification_runs_the_wgmma_kernel(cuda_device):
+    """One pair verification of rendered frames: one wgmma launch; the kernel's matches
+    equal the plain matcher's, and the verified inliers the CPU run's count."""
+    from vo_tpu_torch.engine import refine
+    from vo_tpu_torch.engine.pipeline import extract_and_backproject
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.matching.matchers import ratio_match
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    K = np.array([[260.0, 0.0, 160.0], [0.0, 260.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
+    imgs, deps, _ = render_sequence(3, K, H=240, W=320, step=0.8, yaw_rate=0.01)
+    feats, kp3d = extract_and_backproject(
+        OrbLikeExtractor(max_kp=512), torch.from_numpy(imgs).to(cuda_device),
+        torch.from_numpy(deps).to(cuda_device), torch.from_numpy(K).to(cuda_device))
+    kv = feats.valid & (kp3d[..., 2] > 0.1) & (kp3d[..., 2] < 80.0)
+    args = (feats.kp, feats.desc, feats.valid, kp3d, kv, K, refine.RefineConfig())
+    before = (match.launch_wgmma.launches, match.launch_simt.launches)
+    idx, mask, _, n_in = refine.verify_row_pairs([0], [2], *args, device=cuda_device)
+    assert (match.launch_wgmma.launches - before[0], match.launch_simt.launches) == \
+        (1, before[1])
+    plain = ratio_match(feats.desc[0], feats.desc[2], feats.valid[0], feats.valid[2],
+                        ratio=0.9, binary_dim=256)
+    kern = refine._match(feats.desc[0], feats.desc[2], feats.valid[0], feats.valid[2],
+                         refine.RefineConfig())
+    assert torch.equal(kern.idx, plain.idx) and torch.equal(kern.mask, plain.mask)
+    np.testing.assert_array_equal(idx[0], plain.idx.cpu().numpy())
+    cpu = refine.verify_row_pairs([0], [2], *(a.cpu() if torch.is_tensor(a) else a
+                                              for a in args[:5]), K, args[6], device="cpu")
+    assert abs(int(n_in[0]) - int(cpu[3][0])) <= 2 and n_in[0] > 100

@@ -86,6 +86,36 @@ def test_multiscale_extractor_gpu_default_and_unported_options(no_cuda):
             MultiScaleClassicExtractor(**kw)
 
 
+def test_refinement_and_solvers_default_to_gpu(no_cuda):
+    """``refine_full``, ``refine_trajectory``, the loop-closure functions and both
+    solvers raise without a GPU, and run when asked for the CPU."""
+    from vo_tpu_torch.ba import BAProblem, bundle_adjust, optimize_pose_graph
+    from vo_tpu_torch.engine.loop_closure import detect_loop_closures, optimize_with_loops
+    from vo_tpu_torch.engine.refine import refine_full, refine_trajectory
+
+    poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    poses[:, 2, 3] = np.arange(3.0)
+    feats = (np.zeros((3, 4, 2), np.float32), np.ones((3, 4, 8), np.float32),
+             np.zeros((3, 4), bool), np.zeros((3, 4, 3), np.float32))
+    K = np.eye(3, dtype=np.float32)
+    prob = BAProblem(torch.eye(4).repeat(2, 1, 1), torch.zeros(3, 3),
+                     torch.zeros(2, 4, dtype=torch.int32), torch.zeros(2, 4, 2),
+                     torch.zeros(2, 4, dtype=torch.bool), torch.eye(3))
+    edges, w = np.array([[0, 1], [1, 2]]), np.ones(2, np.float32)
+    calls = [lambda **kw: refine_full(poses, *feats, K, **kw),
+             lambda **kw: refine_trajectory(poses, *feats, K, **kw),
+             lambda **kw: detect_loop_closures([0, 2], poses, *feats, K, **kw),
+             lambda **kw: optimize_with_loops(poses, [0, 2], [], **kw),
+             lambda **kw: bundle_adjust(prob, **kw),
+             lambda **kw: optimize_pose_graph(poses, edges, poses[:2], w, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    out, _, _ = bundle_adjust(prob, device="cpu")
+    assert out.device.type == "cpu" and torch.isfinite(out).all()
+
+
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
     imgs = np.random.default_rng(61).uniform(0, 255, (2, 64, 64)).astype(np.float32)
     feats = OrbLikeExtractor(max_kp=16, border=14)(imgs, device="cpu")

@@ -11,6 +11,7 @@ fallback: asking for ``cuda`` on a machine without one raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,3 +30,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     use_fp32_geometry()
     return dev
+
+
+def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A tensor on ``device`` from a tensor, a numpy array or a nested list (no copy
+    when it is already there in that dtype)."""
+    if not isinstance(x, torch.Tensor):
+        a = np.ascontiguousarray(x)
+        x = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return x.to(device=device, dtype=dtype)

@@ -14,7 +14,7 @@ import time
 import numpy as np
 import torch
 
-from vo_tpu_torch.device import resolve_device
+from vo_tpu_torch.device import resolve_device, to_device
 from vo_tpu_torch.engine.vo import VOConfig, VOEngine, VOStepDiagnostics
 from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
 from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
@@ -22,11 +22,6 @@ from vo_tpu_torch.geometry.camera import depth_to_3d_at, unproject
 from vo_tpu_torch.port_state import state_from_numpy
 
 Extractor = OrbLikeExtractor | MultiScaleClassicExtractor
-
-
-def _to_device(x, device, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
-    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
 def _mm_to_metres(t: torch.Tensor) -> torch.Tensor:
@@ -102,9 +97,9 @@ def run_offline_vo(
     dev = resolve_device(device)
     if extractor is None:
         extractor = OrbLikeExtractor()
-    K = _to_device(np.asarray(K, np.float32), dev)
-    images = _to_device(images, dev)
-    depths = _to_device(depths, dev, torch.float32)
+    K = to_device(np.asarray(K, np.float32), dev)
+    images = to_device(images, dev)
+    depths = to_device(depths, dev, torch.float32)
 
     n = images.shape[0]
     step = extraction_batch if extraction_batch and n > extraction_batch else n
@@ -295,7 +290,7 @@ def run_offline_vo_streaming(
     dev = resolve_device(device)
     if extractor is None:
         extractor = OrbLikeExtractor()
-    Kd = _to_device(np.asarray(K, np.float32), dev)
+    Kd = to_device(np.asarray(K, np.float32), dev)
     engine = VOEngine(vo_config, device=dev)
 
     q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from vo_tpu_torch.geometry.so3 import hat, so3_exp
+from vo_tpu_torch.geometry.so3 import hat, so3_exp, so3_log
 
 _EPS = 1e-8
 
@@ -55,3 +55,25 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
     t = (V @ v[..., None])[..., 0]
     return pose_from_rt(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) pose -> (..., 6) twist [v, w]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    w = so3_log(R)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    W = hat(w)
+    W2 = W @ W
+    # V^-1 = I - W/2 + (1/t^2 - (1+cos t)/(2 t sin t)) W^2
+    half = theta * 0.5
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.sin(half).clamp(min=_EPS))
+        / theta2.clamp(min=_EPS * _EPS))
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(R.shape)
+    V_inv = eye - 0.5 * W + cot_term[..., None, None] * W2
+    v = (V_inv @ t[..., None])[..., 0]
+    return torch.cat([v, w], dim=-1)

@@ -3,17 +3,19 @@
 Usage:
     python -m vo_tpu_torch.runners.vo_run --config cfg.yaml               # on the GPU
     python -m vo_tpu_torch.runners.vo_run --config cfg.yaml --eval        # + score vs GT
+    python -m vo_tpu_torch.runners.vo_run --config cfg.yaml --refine      # BA + pose graph
     python -m vo_tpu_torch.runners.vo_run --config cfg.yaml --device cpu
 
 Reads *.png + *_depth.npy pairs from ``image_path`` in fixed-size batches: the native
 C++ loader (``native/vo_loader.cpp``, built into ``vo_tpu_torch/_build/`` at first use)
 when it opens the directory, the PIL reader otherwise; decode overlaps the device's
-work (``run_offline_vo_streaming``). Writes ``<output_filename>.npy`` (stacked 4x4
-poses) and optionally evaluates against ``gt_txt_file_path``.
+work (``run_offline_vo_streaming``). Optionally refines the trajectory (``--refine``:
+``engine/refine.py::refine_full``, windowed BA and loop closure), writes
+``<output_filename>.npy`` (stacked 4x4 poses) and evaluates against
+``gt_txt_file_path``.
 
-Not ported yet, and refused before any frame is read: ``--refine`` and
-``--save-odometry`` (ROADMAP queue 1 item 9), ``visualize_results: true`` (item 13),
-``feature_extractor: surf`` (item 7) and ``r2d2`` (item 8).
+Not ported yet, and refused before any frame is read: ``visualize_results: true``
+(ROADMAP queue 1 item 13), ``feature_extractor: surf`` (item 7) and ``r2d2`` (item 8).
 """
 
 from __future__ import annotations
@@ -59,11 +61,46 @@ def build_extractor(cfg: RunConfig):
     raise ValueError(f"unknown feature_extractor {cfg.feature_extractor!r}")
 
 
+def refine_poses(poses, feats, kp3d, K, diag, feat_rows=None, save_odometry=None,
+                 device=None):
+    """BA-refine keyframe windows, then close loops with a pose graph
+    (``refine_full``'s adaptive branch). ``feat_rows`` maps feature rows to frame ids
+    when the streaming run retained features sparsely. Returns (closed poses, the
+    refinement's info dict)."""
+    from vo_tpu_torch.engine.refine import refine_full
+
+    closed, info = refine_full(
+        poses, feats.kp, feats.desc, feats.valid, kp3d, K,
+        diag_promoted=np.asarray(diag.promoted_keyframe), feat_rows=feat_rows,
+        device=device)
+    lc = info["pgo"]
+    if info["ran_ba"]:
+        print(f"[refine] heading drift {info['loop_rot_disc_deg']:.2f} deg -> "
+              f"rotation-only BA over {len(info['ba']['windows'])} windows, "
+              f"{len(info['keyframes'])} keyframes")
+    else:
+        print(f"[refine] heading drift {info['loop_rot_disc_deg']:.2f} deg "
+              f"(healthy) -> BA skipped, isotropic closure")
+    print(f"[refine] pose graph: {lc['n_loop_edges']} loop edges, "
+          f"cost {lc['pgo_cost'][0]:.4f} -> {lc['pgo_cost'][-1]:.4f}")
+    if save_odometry:
+        save_poses_npy(save_odometry, info["refined_odometry"])
+        print(f"[refine] odometry-stage trajectory -> {save_odometry}")
+    return closed, info
+
+
 class RunResult(NamedTuple):
+    """What ``run`` did: its exit code, the loader, the poses it wrote, the engine's
+    diagnostics and the odometry (the poses before any refinement); with ``--refine``
+    also the refinement's info and the retained features ``(feats, kp3d, feat_rows)``."""
+
     rc: int
     loader: str = ""
     poses: np.ndarray | None = None
     diag: tuple | None = None
+    odometry: np.ndarray | None = None
+    refine: dict | None = None
+    features: tuple | None = None
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -72,10 +109,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--config", required=True)
     ap.add_argument("--eval", action="store_true", help="score against gt_txt_file_path")
     ap.add_argument("--refine", action="store_true",
-                    help="windowed BA + loop closure (not ported yet: ROADMAP queue 1 "
-                         "item 9)")
+                    help="windowed BA + loop-closure pose graph on the trajectory")
     ap.add_argument("--save-odometry", default=None, metavar="PATH",
-                    help="with --refine (not ported yet: ROADMAP queue 1 item 9)")
+                    help="with --refine: also write the odometry stage (before loop "
+                         "closure) as PATH.npy")
     ap.add_argument("--limit", type=int, default=0, help="process only the first N frames")
     ap.add_argument("--checkpoint", default=None,
                     help="mid-run checkpoint path (poses so far + engine state)")
@@ -100,9 +137,6 @@ def run(argv=None) -> RunResult:
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg = RunConfig.from_yaml(args.config)
-    if args.refine or args.save_odometry:
-        raise NotImplementedError("--refine / --save-odometry are not ported yet "
-                                  "(ROADMAP queue 1, item 9: refinement)")
     if cfg.visualize_results:
         raise NotImplementedError("visualize_results: true is not ported yet (ROADMAP "
                                   "queue 1, item 13: evalkit/plotting.py)")
@@ -131,7 +165,7 @@ def run(argv=None) -> RunResult:
     stats: dict = {}
     t0 = time.perf_counter()
     try:
-        poses, diag, _ = run_offline_vo_streaming(
+        poses, diag, (feats, kp3d, feat_rows) = run_offline_vo_streaming(
             batches, n, K, vo_config=cfg.vo, extractor=extractor,
             checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
             resume_from=args.resume, retain=args.retain,
@@ -145,6 +179,14 @@ def run(argv=None) -> RunResult:
           f"{np.mean(diag.n_inliers):.0f}; waited {stats['queue_wait_s']:.3f}s on the "
           f"loader)")
 
+    odometry, info = poses, None
+    if args.refine:
+        t1 = time.perf_counter()
+        poses, info = refine_poses(poses, feats, kp3d, K, diag,
+                                   feat_rows=None if args.retain == "all" else feat_rows,
+                                   save_odometry=args.save_odometry, device=dev)
+        print(f"[refine] done in {time.perf_counter() - t1:.2f}s")
+
     out = cfg.output_filename
     save_poses_npy(out, poses)
     print(f"[vo_tpu_torch] wrote {out if out.endswith('.npy') else out + '.npy'}")
@@ -156,7 +198,9 @@ def run(argv=None) -> RunResult:
               f"seg rot {res.seg_rot_err_deg_per_100m:.3f} deg/100m  "
               f"ATE/dist {res.ate_over_dist:.2f}  RPE {res.rpe_trans:.4f}  "
               f"rot/dist {res.rpe_rot_over_dist:.4f}  dist {res.total_distance:.1f} m")
-    return RunResult(rc=0, loader=loader, poses=poses, diag=diag)
+    return RunResult(rc=0, loader=loader, poses=poses, diag=diag, odometry=odometry,
+                     refine=info,
+                     features=(feats, kp3d, feat_rows) if args.refine else None)
 
 
 def main(argv=None) -> int:
