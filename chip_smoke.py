@@ -33,11 +33,11 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    ``vo_run`` CLI on them (native loader, sparse depth transfer, ``--eval``): the
    gate, one wgmma launch per tracked frame, and ``run_offline_vo``'s poses on the
    decoded frames; a ``--limit 96`` run's checkpoint resumed to the uninterrupted
-   poses; the SIFT config through the CLI (48 frames, SIMT launches only); ``OnlineVO``
-   on 16 frames against ``run_offline_vo``; then, over the first 48 frames, each
-   streaming pass (2 sparse, 1 float32, 1 uint16mm) followed by a pass of the
-   in-memory extract + engine, the loader's decode-only ceiling, and a profile of two
-   chunks of the sparse stream;
+   poses; the SIFT and SURF configs through the CLI (48 frames each, SIMT launches
+   only); ``OnlineVO`` on 16 frames against ``run_offline_vo``; then, over the first
+   48 frames, each streaming pass (2 sparse, 1 float32, 1 uint16mm) followed by a pass
+   of the in-memory extract + engine, the loader's decode-only ceiling, and a profile
+   of two chunks of the sparse stream;
 9. refinement: the 240-frame loop workload of ``bench.py:478-576`` (rendered in the
    same pool behind the slalom) through ``run_offline_vo``; ``refine_full``'s adaptive
    branch cold and warm with bench.py's gate (``refined_better`` printed, its ATE
@@ -49,7 +49,20 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    whole keyframe chain with the loop edges (finite, its peak device memory); and
    ``vo_run --refine --save-odometry --retain sparse --depth-transfer sparse`` on the
    loop frames written to disk: the gate, and the files equal to its refinement's
-   outputs.
+   outputs; two global BA solves and the cold and warm ``refine_full`` give identical
+   bits (fixed-order block sums);
+10. front-ends and stress: true stereo on the slalom with the right eye rendered at
+    bench.py's 0.54 m baseline (``stereo_extract_and_backproject`` in batches of 8,
+    ``bench.py:388-436``): the gate, one wgmma launch per tracked frame, the stereo
+    depths against the rendered depth (tests/test_stereo.py's limits), identical poses
+    from the plain matcher on 48 frames, timing and profiles of the extraction and of
+    the disparity scan; bench's adversarial workload (``bench.py:438-476``: textureless
+    frames, depth dropout, a moving occluder) through ``run_offline_vo``: the gate, an
+    accept rate inside (0.8, 1.0), 159 wgmma launches, identical plain-matcher poses on
+    frames 32-95; SURF (``response="hessian"``, ``descriptor="surf"``, ``ratio_float``)
+    and oriented BRIEF on the first 48 frames: the gate, 47 SIMT or wgmma launches,
+    (2048, 64) bf16 SURF descriptors, the SIMT kernel against its plain version at
+    2048 x 2048 x 64, identical plain-matcher poses for oriented BRIEF.
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
 line before it lists each kernel and shape with its launches, error, times and bound.
@@ -78,7 +91,9 @@ LOOP = dict(out_frames=64, turn_frames=56, step=0.8, turn_step=0.22)
 # enough that the median loop rotation residual exceeds refine_full's 1 deg threshold.
 LOOP_NOISE_RAD, LOOP_NOISE_M = 0.0015, 0.01
 N_PASSES = 2           # timed passes per path (median)
-F_TIMED = 48           # frames of each timed pass
+F_TIMED = 48           # frames of each timed pass, and of the SURF and oriented paths
+BASELINE_M = 0.54      # stereo baseline of bench.py's true-stereo workload (:397)
+STEREO_BATCH = 8       # its extraction batch (:411)
 
 # H100 SXM published dense peaks (NVIDIA data sheet) for the bounds of the kernels.
 PEAK_BF16_FLOPS = 989e12
@@ -254,6 +269,62 @@ def _synthetic_checks(dev) -> dict:
     return errs
 
 
+def _kernel_entry(card, kernel, source, a, b, va, vb, bf16, peak, peak_name, launched,
+                  errs, n_rep=50) -> dict:
+    """One entry of the kernels line: the kernel, its plain version and a library
+    yardstick (a masked matmul + topk(2) + argmax, never called by the port, in the
+    same operand type; fp32 matmuls keep TF32 off) timed over CUDA-graph replays and
+    eagerly, against the bound."""
+    import torch
+
+    from vo_tpu_torch.ops import match
+    from vo_tpu_torch.ops.match_timing import eager_ms, graph_ms
+
+    mask = va[:, None] & vb[None, :]
+
+    def library():
+        sim = torch.where(mask, torch.matmul(a, b.T).float(), -1e30)
+        return torch.topk(sim, 2, dim=1), torch.argmax(sim, dim=0)
+
+    # Two clocks: CUDA-graph replays give each function's device time; back-to-back
+    # eager calls add whatever host time per call the device does not hide.
+    fns = {"ms": lambda: match.top2_mutual(a, b, va, vb, bf16=bf16),
+           "plain_ms": lambda: match.top2_mutual_plain(a, b, va, vb, bf16=bf16),
+           "library_ms": library}
+    tm = {k: graph_ms(fn, n_rep) for k, fn in fns.items()}
+    eager = {k: eager_ms(fn, n_rep) for k, fn in fns.items()}
+    # Bound: each operand read once (2 or 4 bytes an element), masks read, outputs
+    # (nn12, top2, nn21) written once; products at the peak of the operand type.
+    (na, d), nb = a.shape, b.shape[0]
+    elem = 2 if bf16 else 4
+    flops = 2.0 * na * nb * d
+    nbytes = (na + nb) * d * elem + (na + nb) + na * (4 + 8) + nb * 4
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    shape = f"{na}x{nb}x{d} {'bf16' if bf16 else 'fp32'}"
+    print(f"{kernel} kernel [{card}] {shape}: kernel {tm['ms']:.4f} ms, plain "
+          f"{tm['plain_ms']:.4f} ms, library (matmul + topk + argmax) "
+          f"{tm['library_ms']:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({flops / 1e9:.3f} GFLOP at {peak_name}; {nbytes / 2**20:.2f} MiB at "
+          f"3.35 TB/s), achieved {flops / tm['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / tm['ms'] * 100:.2f} % of the bound (CUDA-graph replays); "
+          f"eager back-to-back: kernel {eager['ms']:.4f} ms, plain "
+          f"{eager['plain_ms']:.4f} ms, library {eager['library_ms']:.4f} ms")
+    return {
+        "name": f"top2_mutual_{kernel} {shape}",
+        "route": "cuda",
+        "source": f"vo_tpu_torch/ops/csrc/{source}",
+        "replaces": "vo_tpu/ops/pallas_match.py:36",
+        "launches": launched,
+        "max_abs_err": max(errs[kernel]),
+        "ms": tm["ms"],
+        "plain_ms": tm["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": tm["library_ms"],
+    }
+
+
 def _gate(name, poses, accepted, gt, launches=None) -> bool:
     """The trajectory gate of ``bench.py``; prints the line and returns pass/fail."""
     from vo_tpu_torch.evalkit import KittiOdomEvaluator
@@ -315,10 +386,11 @@ def _ms_per_frame(seconds: float, n: int) -> float:
     return seconds / n * 1e3
 
 
-def _streaming_phase(card, imgs, deps, gt) -> None:
+def _streaming_phase(card, imgs, deps, gt) -> int:
     """Phase 8: the port as users launch it, on the frames written to disk in the JAX
     bench's io-included format (8-bit gray PNG + ``<u2`` millimetre npy) in a temporary
-    directory under the git-ignored ``vo_tpu_torch/_build/``, removed at the end."""
+    directory under the git-ignored ``vo_tpu_torch/_build/``, removed at the end.
+    Returns the SIMT launches of the SURF config's CLI run."""
     import shutil
     import tempfile
 
@@ -427,6 +499,19 @@ def _streaming_phase(card, imgs, deps, gt) -> None:
                 or not np.isfinite(sres.poses).all()):
             raise AssertionError("the SIFT config through the CLI failed")
 
+        # The SURF config through the CLI (box-filter Hessian + SURF-64, ratio_float).
+        surf_yaml, _ = yaml("surf", "feature_extractor: surf")
+        _reset_counts()
+        ures = vo_run.run(["--config", surf_yaml, "--depth-transfer", "float32",
+                           "--limit", "48"])
+        surf_counts = _counts()
+        print(f"CLI, SURF config, 48 frames: launches {surf_counts}, accept "
+              f"{float(np.mean(ures.diag.accepted)):.3f}, final drift "
+              f"{float(np.linalg.norm(ures.poses[-1, :3, 3] - gt[47, :3, 3])):.3f} m")
+        if (surf_counts != {"wgmma": 0, "simt": 47} or ures.poses.shape != (48, 4, 4)
+                or not np.isfinite(ures.poses).all() or np.mean(ures.diag.accepted) <= 0.8):
+            raise AssertionError("the SURF config through the CLI failed")
+
         # The per-frame API on the first 16 decoded frames.
         n_on = 16
         _reset_counts()
@@ -516,8 +601,240 @@ def _streaming_phase(card, imgs, deps, gt) -> None:
                        2 * EXTRACT_BATCH, sparse_ms)
         sub_s["profile"] = time.perf_counter() - t0
         print("phase 8 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
+        return surf_counts["simt"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _adversarial(imgs, deps):
+    """bench.py:448-457: the slalom with three field failures, drawn with rng 8214:
+    frames 40-42 textureless, 85 % of the depth dropped on frames 80-86, and a moving
+    textureless block with bogus 2 m depth on frames 110-125."""
+    aimgs, adeps = np.array(imgs), np.array(deps)
+    rnga = np.random.default_rng(8214)
+    aimgs[40:43] = 128.0 + 2.0 * rnga.standard_normal(aimgs[40:43].shape).astype(np.float32)
+    drop = rnga.uniform(size=adeps[80:87].shape) < 0.85
+    adeps[80:87] = np.where(drop, 0.0, adeps[80:87])
+    for t, fno in enumerate(range(110, 126)):
+        x0 = 40 + 70 * t
+        aimgs[fno, 60:316, x0:x0 + 360] = 90.0
+        adeps[fno, 60:316, x0:x0 + 360] = 2.0
+    return aimgs, adeps
+
+
+def _plain_matcher_identical(name, cfg, feats, kp3d, Kd, poses, dev) -> None:
+    """The engine with the plain matcher on the same features gives ``poses`` (the
+    kernel engine's) exactly, and launches no match kernel."""
+    import dataclasses
+
+    import torch
+
+    from vo_tpu_torch.engine.vo import VOEngine
+
+    before = _counts()
+    plain, _ = VOEngine(dataclasses.replace(cfg, use_match_kernel=False),
+                        device=dev).run_sequence(*feats, kp3d, Kd)
+    if _counts() != before:
+        raise AssertionError(f"{name}: the plain-matcher engine launched a match kernel")
+    same = bool(torch.equal(plain.cpu(), torch.as_tensor(poses).cpu()))
+    print(f"{name}: kernel vs plain matcher engine runs ({len(kp3d)} frames): poses "
+          f"identical = {same}")
+    if not same:
+        raise AssertionError(f"{name}: kernel and plain-matcher engine runs differ")
+
+
+def _extract_ms(fn, n, n_passes=N_PASSES):
+    """Median ms/frame of ``fn()`` (extraction of ``n`` frames) over ``n_passes``."""
+    import torch
+
+    t = []
+    for _ in range(n_passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append((time.perf_counter() - t0) / n * 1e3)
+    return float(np.median(t)), t
+
+
+def _engine_run(engine, feats, kp3d, Kd):
+    """(poses, diag, ms/frame) of one engine run."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, diag = engine.run_sequence(*feats, kp3d, Kd)
+    torch.cuda.synchronize()
+    return poses, diag, (time.perf_counter() - t0) / len(kp3d) * 1e3
+
+
+def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> dict:
+    """Phase 10: the other front-ends on the same engine, and bench's adversarial
+    workload. Returns the launches of each path and the SURF descriptors of frames 0
+    and 1 (for the kernels line)."""
+    import torch
+
+    from vo_tpu_torch.engine.pipeline import (extract_and_backproject, run_offline_vo,
+                                              stereo_extract_and_backproject)
+    from vo_tpu_torch.engine.vo import VOConfig, VOEngine
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
+    from vo_tpu_torch.features.stereo import stereo_depth_at
+
+    sub_s, launches = {}, {}
+    n = len(imgs)
+    Kd = torch.from_numpy(K).to(dev)
+    imgs_d, rights_d = torch.from_numpy(imgs).to(dev), torch.from_numpy(rights).to(dev)
+    deps_d = torch.from_numpy(deps).to(dev)
+    extractor = OrbLikeExtractor(max_kp=2048)
+
+    # True stereo (bench.py:388-436): depth by block matching on the right eye.
+    t0 = time.perf_counter()
+
+    def stereo_extract(m=n):
+        chunks = [stereo_extract_and_backproject(extractor, imgs_d[s:s + STEREO_BATCH],
+                                                 rights_d[s:s + STEREO_BATCH], Kd,
+                                                 BASELINE_M, device=dev)
+                  for s in range(0, m, STEREO_BATCH)]
+        return (Features(*(torch.cat([c[0][i] for c in chunks]) for i in range(4))),
+                torch.cat([c[1] for c in chunks]))
+
+    _reset_counts()
+    sfeats, skp3d = stereo_extract()
+    feats4 = (sfeats.kp, sfeats.desc, sfeats.valid)
+    sposes, sdiag, s_engine_ms = _engine_run(VOEngine(cfg, device=dev), feats4, skp3d, Kd)
+    counts = _counts()
+    sposes, accepted = sposes.cpu().numpy(), sdiag.accepted.cpu().numpy()
+    launches["stereo"] = counts["wgmma"]
+    if counts != {"wgmma": n - 1, "simt": 0}:
+        raise AssertionError(f"stereo path launches {counts}, expected {n - 1} wgmma")
+    z, kp = skp3d[..., 2].cpu().numpy(), sfeats.kp.cpu().numpy()
+    valid = sfeats.valid.cpu().numpy()
+    gtz = deps[np.arange(n)[:, None], kp[..., 1].astype(int), kp[..., 0].astype(int)]
+    ok = (z > 0) & (gtz > 0) & np.isfinite(gtz)
+    rel = np.abs(z[ok] - gtz[ok]) / gtz[ok]
+    ok_frac = (z > 0).sum(1) / np.maximum(valid.sum(1), 1)
+    print(f"stereo path: depth at {int(ok.sum())} keypoints, relative error to the "
+          f"rendered depth median {np.median(rel):.4f}, share under 0.15 "
+          f"{(rel < 0.15).mean():.4f}; ok fraction per frame min "
+          f"{ok_frac.min():.3f}, median {np.median(ok_frac):.3f}: "
+          f"{[round(float(x), 3) for x in ok_frac]}")
+    if not (np.median(rel) < 0.05 and (rel < 0.15).mean() > 0.8):
+        raise AssertionError("stereo depth fails tests/test_stereo.py's limits")
+    if not _gate("stereo path", sposes, accepted, gt, counts["wgmma"]):
+        raise AssertionError("the stereo path failed the trajectory gate")
+    m = F_TIMED
+    _plain_matcher_identical("stereo path", cfg, tuple(x[:m] for x in feats4), skp3d[:m],
+                             Kd, sposes[:m], dev)
+    s_extract_ms, s_ex = _extract_ms(lambda: stereo_extract(F_TIMED), F_TIMED)
+    print(f"timing [{card}] stereo path: extract {s_extract_ms:.3f} ms/frame (passes "
+          f"{[round(x, 3) for x in s_ex]}, batches of {STEREO_BATCH}), engine "
+          f"{s_engine_ms:.3f} ms/frame ({n} frames)")
+    batch = (imgs_d[:STEREO_BATCH], rights_d[:STEREO_BATCH])
+    _profile_lines(card, "stereo extract", lambda: stereo_extract_and_backproject(
+        extractor, *batch, Kd, BASELINE_M, device=dev), STEREO_BATCH, s_extract_ms)
+    f0 = extractor(batch[0], device=dev)
+    scan_ms, _ = _extract_ms(lambda: stereo_depth_at(*batch, f0.kp, f0.valid, Kd,
+                                                      BASELINE_M, device=dev),
+                             STEREO_BATCH)
+    _profile_lines(card, "stereo scan (stereo_depth_at)", lambda: stereo_depth_at(
+        *batch, f0.kp, f0.valid, Kd, BASELINE_M, device=dev), STEREO_BATCH, scan_ms)
+    _profile_lines(card, "engine on stereo features", lambda: VOEngine(
+        cfg, device=dev).run_sequence(*(x[:9] for x in feats4), skp3d[:9], Kd), 8,
+        s_engine_ms)
+    sub_s["stereo"] = time.perf_counter() - t0
+
+    # The adversarial workload (bench.py:438-476) through run_offline_vo.
+    t0 = time.perf_counter()
+    aimgs, adeps = _adversarial(imgs, deps)
+    _reset_counts()
+    t1 = time.perf_counter()
+    aposes, adiag, (afeats, akp3d) = run_offline_vo(
+        aimgs, adeps, K, vo_config=cfg, extractor=extractor, extraction_batch=EXTRACT_BATCH,
+        return_features=True, device=dev)
+    a_ms = (time.perf_counter() - t1) / n * 1e3
+    counts = _counts()
+    launches["adversarial"] = counts["wgmma"]
+    accept = float(np.mean(adiag.accepted))
+    print(f"adversarial path: holds {int((~adiag.accepted).sum())} (frames "
+          f"{[int(i) + 1 for i in np.nonzero(~adiag.accepted)[0]]}), keyframe promotions "
+          f"{int(adiag.promoted_keyframe.sum())}, accept {accept:.4f}; run_offline_vo "
+          f"{a_ms:.3f} ms/frame")
+    if counts != {"wgmma": n - 1, "simt": 0}:
+        raise AssertionError(f"adversarial path launches {counts}, expected {n - 1} wgmma")
+    if not (_gate("adversarial path", aposes, adiag.accepted, gt, counts["wgmma"])
+            and 0.8 < accept < 1.0):
+        raise AssertionError("the adversarial path failed bench's gate or its accept "
+                             "rate is outside (0.8, 1.0)")
+    # Frames 32-95 hold the textureless and dropout windows: kernel and plain matcher.
+    window = slice(32, 96)
+    afeats4 = tuple(x[window] for x in (afeats.kp, afeats.desc, afeats.valid))
+    wposes, _ = VOEngine(cfg, device=dev).run_sequence(*afeats4, akp3d[window], Kd)
+    _plain_matcher_identical("adversarial path, frames 32-95", cfg, afeats4,
+                             akp3d[window], Kd, wposes, dev)
+    sub_s["adversarial"] = time.perf_counter() - t0
+
+    # SURF (box-filter Hessian + SURF-64, ratio_float at 0.85) over the first 48 frames.
+    t0 = time.perf_counter()
+    m = F_TIMED
+    surf = OrbLikeExtractor(max_kp=2048, response="hessian", descriptor="surf")
+    surf_cfg = VOConfig(matcher="ratio_float", ratio=0.85, pnp=PnPConfig(n_hypotheses=512))
+    _reset_counts()
+    uposes, udiag, (ufeats, ukp3d) = run_offline_vo(
+        imgs[:m], deps[:m], K, vo_config=surf_cfg, extractor=surf,
+        extraction_batch=EXTRACT_BATCH, return_features=True, device=dev)
+    counts = _counts()
+    launches["surf"] = counts["simt"]
+    if counts != {"wgmma": 0, "simt": m - 1}:
+        raise AssertionError(f"SURF path launches {counts}, expected {m - 1} simt, 0 wgmma")
+    if ufeats.desc.shape[1:] != (2048, 64) or ufeats.desc.dtype != torch.bfloat16:
+        raise AssertionError(f"SURF descriptors {tuple(ufeats.desc.shape)} {ufeats.desc.dtype}")
+    if not _gate(f"SURF path, {m} frames", uposes, udiag.accepted, gt[:m], counts["simt"]):
+        raise AssertionError("the SURF path failed the trajectory gate")
+    _, _, u_engine_ms = _engine_run(VOEngine(surf_cfg, device=dev),
+                                    (ufeats.kp, ufeats.desc, ufeats.valid), ukp3d, Kd)
+    u_extract_ms, u_ex = _extract_ms(lambda: [extract_and_backproject(
+        surf, imgs_d[s:s + EXTRACT_BATCH], deps_d[s:s + EXTRACT_BATCH], Kd)
+        for s in range(0, m, EXTRACT_BATCH)], m)
+    print(f"timing [{card}] SURF path: extract {u_extract_ms:.3f} ms/frame (passes "
+          f"{[round(x, 3) for x in u_ex]}), engine {u_engine_ms:.3f} ms/frame ({m} frames)")
+    _profile_lines(card, "SURF extract", lambda: extract_and_backproject(
+        surf, imgs_d[:EXTRACT_BATCH], deps_d[:EXTRACT_BATCH], Kd), EXTRACT_BATCH,
+        u_extract_ms)
+    surf01 = tuple(x.contiguous() for x in (ufeats.desc[0].float(), ufeats.desc[1].float(),
+                                            ufeats.valid[0], ufeats.valid[1]))
+    errs["simt"].append(_check_kernel("SURF path frames 0, 1", *surf01, False))
+    sub_s["surf"] = time.perf_counter() - t0
+
+    # Oriented BRIEF (rotation-steered patch BRIEF, ratio_binary) over the first 48.
+    t0 = time.perf_counter()
+    oriented = OrbLikeExtractor(max_kp=2048, oriented=True)
+    _reset_counts()
+    oposes, odiag, (ofeats, okp3d) = run_offline_vo(
+        imgs[:m], deps[:m], K, vo_config=cfg, extractor=oriented,
+        extraction_batch=EXTRACT_BATCH, return_features=True, device=dev)
+    counts = _counts()
+    launches["oriented"] = counts["wgmma"]
+    if counts != {"wgmma": m - 1, "simt": 0}:
+        raise AssertionError(f"oriented path launches {counts}, expected {m - 1} wgmma")
+    if not _gate(f"oriented BRIEF path, {m} frames", oposes, odiag.accepted, gt[:m],
+                 counts["wgmma"]):
+        raise AssertionError("the oriented-BRIEF path failed the trajectory gate")
+    ofeats4 = (ofeats.kp, ofeats.desc, ofeats.valid)
+    _plain_matcher_identical("oriented BRIEF path", cfg, ofeats4, okp3d, Kd, oposes, dev)
+    _, _, o_engine_ms = _engine_run(VOEngine(cfg, device=dev), ofeats4, okp3d, Kd)
+    o_extract_ms, o_ex = _extract_ms(lambda: [extract_and_backproject(
+        oriented, imgs_d[s:s + EXTRACT_BATCH], deps_d[s:s + EXTRACT_BATCH], Kd)
+        for s in range(0, m, EXTRACT_BATCH)], m)
+    print(f"timing [{card}] oriented BRIEF path: extract {o_extract_ms:.3f} ms/frame "
+          f"(passes {[round(x, 3) for x in o_ex]}), engine {o_engine_ms:.3f} ms/frame "
+          f"({m} frames)")
+    _profile_lines(card, "oriented BRIEF extract", lambda: extract_and_backproject(
+        oriented, imgs_d[:EXTRACT_BATCH], deps_d[:EXTRACT_BATCH], Kd), EXTRACT_BATCH,
+        o_extract_ms)
+    sub_s["oriented"] = time.perf_counter() - t0
+    print("phase 10 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
+    return {"launches": launches, "surf01": surf01}
 
 
 def _refine_scores(gt, poses):
@@ -633,6 +950,9 @@ def _refinement_phase(card, frames, cfg, extractor, errs) -> dict:
           f"run's closed poses within {float(np.abs(closed_w - closed).max()):.2e}")
     if counts != {"wgmma": n_verified, "simt": 0} or n_verified == 0:
         raise AssertionError(f"refine_full launches {counts} for {n_verified} verifications")
+    # Fixed-order block sums in BA and the pose graph: the warm run repeats the cold.
+    if not np.array_equal(closed_w, closed):
+        raise AssertionError("the cold and warm refine_full give different closed poses")
     if not _refine_gate("loop workload, adaptive", gt, poses, info["refined_odometry"],
                         closed, info["loop_edges"]):
         raise AssertionError("refine_full failed the refinement gate")
@@ -706,26 +1026,43 @@ def _refinement_phase(card, frames, cfg, extractor, errs) -> dict:
         raise AssertionError("the BA branch failed")
     sub_s["ba_branch"] = time.perf_counter() - t0
 
-    # One global BA over the whole keyframe chain with the loop edges, at full size.
+    # One global BA over the whole keyframe chain with the loop edges, at full size,
+    # solved twice on the same matches: the two solves agree bit for bit.
     t0 = time.perf_counter()
+    host = refine._host_features(poses, feats.kp, feats.valid, kp3d)
+    kfs_g = refine._select_keyframes(promoted, LF)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    all_pairs = refine._all_adjacent_pair_matches(
+        kfs_g, host[1], feats.desc, host[2], host[3], host[4], K, refine.RefineConfig(),
+        torch.device("cuda"))
+    adjacent_s = time.perf_counter() - t1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    refined_g, ginfo = refine.refine_trajectory_global(
-        poses, *args, diag_promoted=promoted, loop_edges=edges, device="cuda")
+    runs = [refine.refine_trajectory_global(
+        poses, *args, diag_promoted=promoted, loop_edges=edges, all_pairs=all_pairs,
+        device="cuda") for _ in range(2)]
     peak = torch.cuda.max_memory_allocated()
+    (refined_g, ginfo), (refined_g2, ginfo2) = runs
     P = len(ginfo["keyframes"])
     p_pad = -(-max(P, 2) // 32) * 32
     l_pad = -(-((P - 1) * 85 + len(edges) * 64) // 2048) * 2048
-    gtime = ginfo["timing"]
+    gtime, gtime2 = ginfo["timing"], ginfo2["timing"]
+    same_g = bool(np.array_equal(refined_g, refined_g2)
+                  and ginfo["final_cost"] == ginfo2["final_cost"])
     print(f"refine_trajectory_global [{card}]: {P} keyframes (P_pad {p_pad}), "
           f"{ginfo['n_loop_pairs']} loop pairs, L_pad {l_pad}, n_obs {ginfo['n_obs']}, "
           f"final_cost {ginfo['final_cost']:.3f}, skipped {bool(ginfo.get('skipped'))}; "
-          f"match {gtime['match_s']:.3f} s, build {gtime['build_s']:.3f} s, BA "
-          f"{gtime['ba_s']:.3f} s; peak device memory {(peak - base) / 2**20:.1f} MiB above "
-          f"the {base / 2**20:.1f} MiB held before")
+          f"match {adjacent_s + gtime['match_s']:.3f} s ({len(kfs_g) - 1} adjacent "
+          f"pairs {adjacent_s:.3f} s, loop pairs {gtime['match_s']:.3f} s), build "
+          f"{gtime['build_s']:.3f} s, BA {gtime['ba_s']:.3f} s (second solve "
+          f"{gtime2['ba_s']:.3f} s); peak device memory {(peak - base) / 2**20:.1f} MiB "
+          f"above the {base / 2**20:.1f} MiB held before; two solves identical = {same_g}")
     if not (np.isfinite(refined_g).all() and np.isfinite(ginfo["final_cost"])):
         raise AssertionError("the global BA gave a non-finite result")
+    if not same_g:
+        raise AssertionError("two global BA solves of the same problem differ")
     sub_s["global_ba"] = time.perf_counter() - t0
 
     # The CLI as users launch it.
@@ -827,7 +1164,6 @@ def _smoke(pool) -> None:
     from vo_tpu_torch.features.extractor import OrbLikeExtractor
     from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
     from vo_tpu_torch.ops import match
-    from vo_tpu_torch.ops.match_timing import eager_ms, graph_ms
     from vo_tpu_torch.utils.synthetic import (default_world, depth_valid_fraction,
                                               loop_trajectory, render_rgbd,
                                               slalom_trajectory)
@@ -840,6 +1176,10 @@ def _smoke(pool) -> None:
     loop_world = default_world(half_width=14.0, fine_amp=1.0)
     loop_rendered = pool.starmap_async(
         render_rgbd, [(T, K, H, W, loop_world) for T in loop_trajectory(**LOOP)])
+    # The right eye of the slalom (bench.py:402-410), for phase 10, behind both.
+    shift = np.eye(4)
+    shift[0, 3] = BASELINE_M
+    right_rendered = pool.starmap_async(render_rgbd, [(T @ shift, K, H, W) for T in traj])
 
     # Phase 2: build.
     t0 = time.perf_counter()
@@ -904,16 +1244,8 @@ def _smoke(pool) -> None:
         raise AssertionError("trajectory gate failed")
 
     t0 = time.perf_counter()
-    plain_engine = VOEngine(VOConfig(matcher="ratio_binary", pnp=PnPConfig(n_hypotheses=512),
-                                     use_match_kernel=False), device=dev)
-    before = _counts()
-    poses_plain, _ = plain_engine.run_sequence(feats.kp, feats.desc, feats.valid, kp3d, Kd)
-    if _counts() != before:
-        raise AssertionError("the plain-matcher engine launched a match kernel")
-    same = bool(torch.equal(poses_plain.cpu(), torch.from_numpy(poses)))
-    print(f"kernel vs plain matcher engine runs: poses identical = {same}")
-    if not same:
-        raise AssertionError("kernel and plain-matcher engine runs give different poses")
+    _plain_matcher_identical("main path", cfg, (feats.kp, feats.desc, feats.valid), kp3d,
+                             Kd, poses, dev)
     phase_s["plain_engine_run"] = time.perf_counter() - t0
 
     # Phase 5: the float-mode path (the matchers of float descriptors), counted: the
@@ -989,9 +1321,8 @@ def _smoke(pool) -> None:
 
     # Each kernel at the shapes its paths give it: the wgmma kernel on the main
     # path's bf16 descriptors of frames 0 and 1, the SIMT kernel on the SIFT path's
-    # (D = 128) and on the main path's as fp32 (D = 256). The library yardstick (a
-    # masked matmul + topk(2) + argmax, never called by the port) runs in the same
-    # operand type; fp32 matmuls keep TF32 off (vo_tpu_torch.device).
+    # (D = 128) and on the main path's as fp32 (D = 256); phase 10 adds the SURF
+    # path's (D = 64).
     t0 = time.perf_counter()
     n_rep = 50
     timed = [("wgmma", "match_wgmma.cu", desc_a, desc_b, valid_a, valid_b, True,
@@ -1000,52 +1331,7 @@ def _smoke(pool) -> None:
               PEAK_FP32_FLOPS, "67 TFLOP/s fp32", counts_s["simt"]),
              ("simt", "match_kernel.cu", desc_a32, desc_b32, valid_a, valid_b, False,
               PEAK_FP32_FLOPS, "67 TFLOP/s fp32", counts_f["simt"])]
-    entries = []
-    for kernel, source, a, b, va, vb, bf16, peak, peak_name, launched in timed:
-        mask = va[:, None] & vb[None, :]
-
-        def library(a=a, b=b, mask=mask):
-            sim = torch.where(mask, torch.matmul(a, b.T).float(), -1e30)
-            return torch.topk(sim, 2, dim=1), torch.argmax(sim, dim=0)
-
-        # Two clocks: CUDA-graph replays give each function's device time;
-        # back-to-back eager calls add whatever host time per call the device does
-        # not hide.
-        fns = {"ms": lambda: match.top2_mutual(a, b, va, vb, bf16=bf16),
-               "plain_ms": lambda: match.top2_mutual_plain(a, b, va, vb, bf16=bf16),
-               "library_ms": library}
-        tm = {k: graph_ms(fn, n_rep) for k, fn in fns.items()}
-        eager = {k: eager_ms(fn, n_rep) for k, fn in fns.items()}
-        # Bound: each operand read once (2 or 4 bytes an element), masks read, outputs
-        # (nn12, top2, nn21) written once; products at the peak of the operand type.
-        (na, d), nb = a.shape, b.shape[0]
-        elem = 2 if bf16 else 4
-        flops = 2.0 * na * nb * d
-        nbytes = (na + nb) * d * elem + (na + nb) + na * (4 + 8) + nb * 4
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        shape = f"{na}x{nb}x{d} {'bf16' if bf16 else 'fp32'}"
-        print(f"{kernel} kernel [{card}] {shape}: kernel {tm['ms']:.4f} ms, plain "
-              f"{tm['plain_ms']:.4f} ms, library (matmul + topk + argmax) "
-              f"{tm['library_ms']:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-              f"({flops / 1e9:.3f} GFLOP at {peak_name}; {nbytes / 2**20:.2f} MiB at "
-              f"3.35 TB/s), achieved {flops / tm['ms'] / 1e9:.1f} TFLOP/s, "
-              f"{bound_ms / tm['ms'] * 100:.2f} % of the bound (CUDA-graph replays); "
-              f"eager back-to-back: kernel {eager['ms']:.4f} ms, plain "
-              f"{eager['plain_ms']:.4f} ms, library {eager['library_ms']:.4f} ms")
-        entries.append({
-            "name": f"top2_mutual_{kernel} {shape}",
-            "route": "cuda",
-            "source": f"vo_tpu_torch/ops/csrc/{source}",
-            "replaces": "vo_tpu/ops/pallas_match.py:36",
-            "launches": launched,
-            "max_abs_err": max(errs[kernel]),
-            "ms": tm["ms"],
-            "plain_ms": tm["plain_ms"],
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": tm["library_ms"],
-        })
+    entries = [_kernel_entry(card, *t, errs, n_rep) for t in timed]
 
     # One CUDA kernel per SIMT call: no fill and no finalize kernel.
     _, n_kernels, top = _device_profile(lambda: match.top2_mutual(sd_a, sd_b, sv_a, sv_b))
@@ -1074,7 +1360,7 @@ def _smoke(pool) -> None:
 
     # Phase 8: streaming, the CLI and the per-frame API.
     t0 = time.perf_counter()
-    _streaming_phase(card, imgs, deps, gt)
+    surf_cli_launches = _streaming_phase(card, imgs, deps, gt)
     phase_s["streaming_cli_online"] = time.perf_counter() - t0
 
     # Phase 9: refinement on the loop workload (rendered behind the slalom).
@@ -1085,12 +1371,35 @@ def _smoke(pool) -> None:
     refine_launches = _refinement_phase(card, loop_frames, cfg, extractor, errs)
     del loop_frames
     phase_s["refinement"] = time.perf_counter() - t0
+
+    # Phase 10: the other front-ends and bench's adversarial workload.
+    t0 = time.perf_counter()
+    rights = np.stack([f[0] for f in right_rendered.get(timeout=900)])
+    phase_s["right_eye_render_wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    front = _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs)
+    phase_s["front_ends"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fl = front["launches"]
+    surf_entry = _kernel_entry(card, "simt", "match_kernel.cu", *front["surf01"], False,
+                               PEAK_FP32_FLOPS, "67 TFLOP/s fp32",
+                               fl["surf"] + surf_cli_launches, errs)
+    surf_entry["launches_by_path"] = {
+        f"SURF path (run_offline_vo, {F_TIMED} frames)": fl["surf"],
+        "SURF config (vo_run, 48 frames)": surf_cli_launches}
+    entries.append(surf_entry)
+    phase_s["timing_kernel_simt64"] = time.perf_counter() - t0
+
     by_path = {"main path (run_offline_vo, 160 frames)": launches,
                "refinement (refine_full, loop workload)": refine_launches["refine_full"],
                "refinement (vo_run --refine, loop workload)":
-                   refine_launches["vo_run --refine"]}
-    entries[0].update(launches=sum(by_path.values()), launches_by_path=by_path,
-                      max_abs_err=max(errs["wgmma"]))
+                   refine_launches["vo_run --refine"],
+               "stereo path (160 frames)": fl["stereo"],
+               "adversarial path (run_offline_vo, 160 frames)": fl["adversarial"],
+               f"oriented BRIEF path (run_offline_vo, {F_TIMED} frames)": fl["oriented"]}
+    entries[0].update(launches=sum(by_path.values()), launches_by_path=by_path)
+    for e in entries:
+        e["max_abs_err"] = max(errs["wgmma" if "wgmma" in e["name"] else "simt"])
 
     for path, (ex_ms, en_ms, ex, en) in (("main path", (extract_ms, engine_ms, t_ex, t_en)),
                                          ("SIFT path", (s_extract_ms, s_engine_ms, s_ex, s_en))):

@@ -5,8 +5,9 @@ Problems as tests/test_ba.py builds them: 6 cameras on an arc over 120 landmarks
 observation slots each, noisy initialisation; a 12- or 40-node pose chain with a
 loop edge. Tolerances: SE(3) maps and blocks 1e-5 (relative where stated); BA and PGO
 results rtol 1e-4 of each array's scale, the iteration costs rtol 1e-4 (the solves
-sum in another order: never bit-equal, and on the card ``index_add_`` sums with
-atomics).
+sum in another order than XLA: never bit-equal). The port's block sums
+(``ba/segment.py::segment_sum``) are fixed-order: bit-equal to ``index_add_`` on the
+CPU and from call to call.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ import torch
 from vo_tpu.geometry import se3 as jse3
 from vo_tpu_torch.ba import BAConfig, BAProblem, PoseGraphConfig, bundle_adjust, optimize_pose_graph
 from vo_tpu_torch.ba.pose_graph import adjoint
+from vo_tpu_torch.ba.segment import segment_sum, segments
 from vo_tpu_torch.geometry.se3 import se3_exp, se3_log
 from vo_tpu_torch.geometry.so3 import so3_exp
 from vo_tpu_torch.port_state import ba_problem_from_numpy, config_from_jax
@@ -261,3 +263,38 @@ def test_solvers_configs_and_problem_from_jax():
     assert isinstance(prob, BAProblem) and prob.obs_z is None
     for name, value in arrays.items():
         np.testing.assert_array_equal(getattr(prob, name).numpy(), value)
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (6,), (6, 6)])
+def test_segment_sum_equals_index_add_and_repeats(shape):
+    """The fixed-order segment sum gives ``index_add_``'s bits on the CPU (both add
+    each segment's values in their original order, from 0), empty segments are 0, and
+    two calls, with a plan or without, give the same bits."""
+    rng = np.random.default_rng(39)
+    n, num = 5000, 700                       # ~7 values per id, some ids unused
+    ids = torch.from_numpy(rng.integers(0, num, n))
+    ids[ids == 3] = 4                        # an empty segment
+    values = torch.from_numpy(rng.normal(size=(n,) + shape).astype(np.float32) * 1e3)
+    ref = values.new_zeros((num,) + shape).index_add_(0, ids, values)
+    got = segment_sum(values, ids, num)
+    assert torch.equal(got, ref)
+    assert (got[3] == 0).all()
+    plan = segments(ids, num)
+    assert torch.equal(segment_sum(values, plan), got)
+    assert torch.equal(segment_sum(values, plan), segment_sum(values, plan))
+    empty = segment_sum(values[:0], ids[:0], 4)
+    assert empty.shape == (4,) + shape and (empty == 0).all()
+
+
+def test_solvers_repeat_bit_for_bit():
+    """Two calls of each solver on the same problem give identical bits."""
+    arrays = make_problem(np.random.default_rng(40), P=5, L=60, M=30)
+    _, tprob = _both(arrays)
+    runs = [bundle_adjust(tprob, BAConfig(iterations=4), device="cpu") for _ in range(2)]
+    for a, b in zip(runs[0][:2], runs[1][:2]):
+        assert torch.equal(a, b)
+    _, init, edges, zs = _chain(np.random.default_rng(41))
+    w = np.ones(len(edges), np.float32)
+    (o1, c1), (o2, c2) = (optimize_pose_graph(init, edges, zs, w, device="cpu")
+                          for _ in range(2))
+    assert torch.equal(o1, o2) and torch.equal(c1, c2)

@@ -206,12 +206,13 @@ def test_cli_refine_and_save_odometry(seq, port_cli, retain, capsys):
     assert res.refine["keyframes"].tolist() == info["keyframes"].tolist()
 
 
-@pytest.mark.parametrize("case", ["visualize", "surf", "r2d2"])
+@pytest.mark.parametrize("case", ["visualize", "r2d2"])
 def test_unported_options_raise_before_reading(tmp_path, case):
     """Each raises NotImplementedError naming its ROADMAP item, before any frame is
-    read (the image path does not even exist), with ``--refine`` or without."""
+    read (the image path does not even exist), with ``--refine`` or without.
+    (``feature_extractor: surf`` is ported: tests/test_torch_surf.py.)"""
     extra = {"visualize": "visualize_results: true\n",
-             "surf": "feature_extractor: surf\n", "r2d2": "feature_extractor: r2d2\n"}
+             "r2d2": "feature_extractor: r2d2\n"}
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(f"image_path: {tmp_path / 'missing'}\n" + extra[case])
     for flags in ([], ["--refine", "--save-odometry", str(tmp_path / "odo")]):

@@ -11,9 +11,11 @@ here skips. bf16 cases go through the wgmma kernel (``launch_wgmma``), fp32 case
 through the SIMT kernel (``launch_simt``). Binary +-1 descriptors, in bf16 or fp32,
 give integer similarities: nn12, nn21 and top2 must be exactly equal. Float unit
 vectors sum fp32 products in another order: top2 within 1e-5, nn12 equal wherever
-best - second > 1e-4. Bundle adjustment and the pose graph sum blocks with atomics on
-the card (``index_add_``): held to the CPU's result within rtol 1e-4 of each array's
-scale, never to identical bits.
+best - second > 1e-4. Bundle adjustment and the pose graph sum their blocks in a fixed
+order (``ba/segment.py``): two calls on the card give identical bits; against the CPU
+they are held within rtol 1e-4 of each array's scale. The front-ends (stereo, SURF,
+oriented BRIEF) on the card are held to their CPU runs, and the 44-frame depth-dropout
+drive of tests/test_engine_e2e.py to its assertions.
 """
 
 import numpy as np
@@ -61,6 +63,7 @@ CASES = {
     # shapes and a long B, the last ones as exact +-1 values.
     "sift_like_2048x2048x128": (lambda r: sift_like(r, 2048, 2048), False),
     "float_300x280x130": (lambda r: _float(r, 300, 280, 130), False),
+    "surf_like_2048x2048x64": (lambda r: _float(r, 2048, 2048, 64), False),
     "binary_as_fp32_2048x2048x256": (lambda r: _binary(r, 2048, 2048), False),
     "binary_as_fp32_1x1x256": (lambda r: _binary(r, 1, 1), False),
     "binary_as_fp32_63x65x256": (lambda r: _binary(r, 63, 65), False),
@@ -347,3 +350,133 @@ def test_pair_verification_runs_the_wgmma_kernel(cuda_device):
     cpu = refine.verify_row_pairs([0], [2], *(a.cpu() if torch.is_tensor(a) else a
                                               for a in args[:5]), K, args[6], device="cpu")
     assert abs(int(n_in[0]) - int(cpu[3][0])) <= 2 and n_in[0] > 100
+
+
+@pytest.mark.cuda
+def test_solvers_repeat_bit_for_bit_on_the_card(cuda_device):
+    """Two calls of bundle_adjust and of optimize_pose_graph on the same problem give
+    identical bits on the card (fixed-order segment sums, no atomics)."""
+    from vo_tpu_torch.ba import BAConfig, bundle_adjust, optimize_pose_graph
+    from vo_tpu_torch.port_state import ba_problem_from_numpy
+
+    arrays = _ba_arrays(np.random.default_rng(84))
+    prob = ba_problem_from_numpy(arrays, cuda_device)
+    runs = [bundle_adjust(prob, BAConfig(), device=cuda_device) for _ in range(2)]
+    for a, b in zip(runs[0][:2], runs[1][:2]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][2]["costs"], runs[1][2]["costs"])
+    N = 60
+    rng = np.random.default_rng(85)
+    init = np.tile(np.eye(4, dtype=np.float32), (N, 1, 1))
+    init[:, :3, 3] = np.cumsum(rng.normal(0, 1, (N, 3)), axis=0)
+    edges = np.array([(i, i + 1) for i in range(N - 1)] + [(0, N - 1), (5, 40), (10, 50)])
+    zs = np.stack([np.linalg.inv(init[i]) @ init[j] for i, j in edges]).astype(np.float32)
+    zs[:, :3, 3] += rng.normal(0, 0.05, (len(edges), 3)).astype(np.float32)
+    w = np.ones(len(edges), np.float32)
+    (o1, c1), (o2, c2) = (optimize_pose_graph(init, edges, zs, w, device=cuda_device)
+                          for _ in range(2))
+    assert torch.equal(o1, o2) and torch.equal(c1, c2)
+
+
+def _render_stereo(n, K, H=240, W=320):
+    from vo_tpu_torch.utils.synthetic import render_rgbd, render_sequence
+
+    imgs, deps, traj = render_sequence(n, K, H=H, W=W, step=0.8, yaw_rate=0.0)
+    shift = np.eye(4)
+    shift[0, 3] = 0.54
+    rights = np.stack([render_rgbd(T @ shift, K, H=H, W=W)[0] for T in traj])
+    return imgs, rights, deps
+
+
+K_SMALL = np.array([[260.0, 0.0, 160.0], [0.0, 260.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+@pytest.mark.cuda
+def test_stereo_front_end_on_the_card_matches_the_cpu(cuda_device):
+    from vo_tpu_torch.engine.pipeline import stereo_extract_and_backproject
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+
+    lefts, rights, _ = _render_stereo(4, K_SMALL)
+    out = {dev: stereo_extract_and_backproject(OrbLikeExtractor(max_kp=512), lefts, rights,
+                                               K_SMALL, 0.54, max_disp=96, device=dev)
+           for dev in ("cpu", cuda_device)}
+    (fc, kc), (fg, kg) = out["cpu"], out[cuda_device]
+    assert kg.device.type == "cuda"
+    np.testing.assert_array_equal(fg.kp.cpu().numpy(), fc.kp.numpy())
+    zc, zg = kc[..., 2].numpy() > 0, kg[..., 2].cpu().numpy() > 0
+    assert ((zc != zg).sum(axis=1) <= 2).all()
+    assert (zc & zg).sum(axis=1).min() >= 100
+    _close(kg.cpu().numpy()[zc & zg], kc.numpy()[zc & zg], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_stereo_depth_on_the_card_within_the_jax_tests_limits(cuda_device):
+    """tests/test_stereo.py's pair (frame 2 of a drive, fx 300, the right eye 0.54 m
+    to the side) on the card: the depths at the ok keypoints within that test's limits
+    against the rendered depth."""
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.features.stereo import stereo_depth_at
+    from vo_tpu_torch.utils.synthetic import drive_trajectory, render_rgbd
+
+    K = np.array([[300.0, 0.0, 160.0], [0.0, 300.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
+    T_wl = drive_trajectory(3, step=0.8)[2]
+    T_wr = T_wl.copy()
+    T_wr[:3, 3] += T_wl[:3, :3] @ np.array([0.54, 0.0, 0.0])
+    left, dep_gt = render_rgbd(T_wl, K, H=240, W=320)
+    right, _ = render_rgbd(T_wr, K, H=240, W=320)
+    feats = OrbLikeExtractor(max_kp=256)(left[None], device=cuda_device)
+    depth, ok = stereo_depth_at(left, right, feats.kp[0], feats.valid[0], K, 0.54,
+                                max_disp=96, device=cuda_device)
+    depth, ok, kp = depth.cpu().numpy(), ok.cpu().numpy(), feats.kp[0].cpu().numpy()
+    assert ok.sum() > 40
+    gt = dep_gt[kp[ok, 1].astype(int), kp[ok, 0].astype(int)]
+    rel_err = np.abs(depth[ok] - gt) / gt
+    assert np.median(rel_err) < 0.05 and (rel_err < 0.15).mean() > 0.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(oriented=True),
+                                dict(response="hessian", descriptor="surf")],
+                         ids=["oriented_brief", "surf"])
+def test_front_end_extractors_on_the_card_match_the_cpu(cuda_device, kw):
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+
+    imgs, _, _ = _render_stereo(2, K_SMALL)
+    ex = OrbLikeExtractor(max_kp=512, **kw)
+    c, g = ex(imgs, device="cpu"), ex(imgs, device=cuda_device)
+    assert g.desc.device.type == "cuda" and g.desc.dtype == torch.bfloat16
+    np.testing.assert_array_equal(g.valid.cpu().numpy(), c.valid.numpy())
+    same_kp = (g.kp.cpu() == c.kp).all(-1).numpy()
+    assert same_kp.mean() >= 0.99
+    gd, cd = g.desc.float().cpu().numpy()[same_kp], c.desc.float().numpy()[same_kp]
+    if kw.get("oriented"):
+        assert (gd == cd).mean() >= 0.999
+    else:
+        np.testing.assert_allclose(gd, cd, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_depth_dropout_window_recovers_on_the_card(cuda_device):
+    """tests/test_engine_e2e.py's 44-frame depth-dropout case, with the port on the
+    card and the same assertions."""
+    from vo_tpu_torch.engine.pipeline import run_offline_vo
+    from vo_tpu_torch.engine.vo import VOConfig
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils.synthetic import render_sequence, slalom_trajectory
+
+    F = 44
+    traj = slalom_trajectory(F, step=0.8)
+    imgs, deps, gt = render_sequence(F, K_SMALL, H=240, W=320, traj=traj)
+    rng = np.random.default_rng(8214)
+    drop = rng.uniform(size=deps[20:27].shape) < 0.85
+    deps[20:27] = np.where(drop, 0.0, deps[20:27])
+    cfg = VOConfig(matcher="ratio_binary", pnp=PnPConfig(n_hypotheses=256))
+    before = match.launch_wgmma.launches
+    poses, diag = run_offline_vo(imgs, deps, K_SMALL, vo_config=cfg,
+                                 extractor=OrbLikeExtractor(max_kp=1024),
+                                 extraction_batch=16, device=cuda_device)
+    assert match.launch_wgmma.launches - before == F - 1
+    err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
+    assert err[-1] < 1.0, f"dropout window corrupted trajectory: {err[-1]:.2f} m"
+    assert diag.accepted.mean() > 0.85

@@ -104,12 +104,16 @@ def test_detect_flat_topk_and_subpixel():
 
 
 def test_extractor_unported_options_raise():
-    """SURF's Hessian response and descriptor, and oriented BRIEF, are still to port;
-    DoG and gradhist (the SIFT config's options) are ported."""
-    for kw in ({"response": "hessian"}, {"descriptor": "surf"}, {"oriented": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TExtractor(**kw)
-    TExtractor(response="dog", descriptor="gradhist")
+    """Every option of the JAX extractor is ported now: SURF's Hessian response and
+    descriptor and oriented BRIEF (tests/test_torch_surf.py and
+    tests/test_torch_oriented_brief.py hold them against JAX), and the SIFT config's
+    DoG and gradhist; none raises, and each gives its descriptor's width and type."""
+    imgs = np.random.default_rng(63).uniform(0, 255, (1, 96, 128)).astype(np.float32)
+    for kw, width in (({"response": "hessian"}, 256), ({"descriptor": "surf"}, 64),
+                      ({"oriented": True}, 256),
+                      ({"response": "dog", "descriptor": "gradhist"}, 128)):
+        feats = TExtractor(max_kp=32, **kw)(imgs, device="cpu")
+        assert feats.desc.shape == (1, 32, width) and feats.desc.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("multiscale", [False, True], ids=["orb_like", "multiscale"])

@@ -72,8 +72,8 @@ def test_streaming_online_and_cli_raise_without_gpu(no_cuda, tmp_path):
 
 
 def test_multiscale_extractor_gpu_default_and_unported_options(no_cuda):
-    """The SIFT config's extractor runs on the GPU unless asked for the CPU, and its
-    SURF options (not ported yet) raise."""
+    """The SIFT config's extractor runs on the GPU unless asked for the CPU; its SURF
+    options (ported now) do the same."""
     imgs = np.random.default_rng(62).uniform(0, 255, (2, 96, 128)).astype(np.float32)
     ex = MultiScaleClassicExtractor(max_kp=32, n_scales=2, response="dog",
                                     descriptor="gradhist", oriented=True)
@@ -81,9 +81,34 @@ def test_multiscale_extractor_gpu_default_and_unported_options(no_cuda):
         ex(imgs)
     feats = ex(imgs, device="cpu")
     assert feats.desc.shape == (2, 32, 128) and feats.desc.dtype == torch.bfloat16
-    for kw in ({"response": "hessian"}, {"descriptor": "surf"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MultiScaleClassicExtractor(**kw)
+    surf = MultiScaleClassicExtractor(max_kp=32, n_scales=2, response="hessian",
+                                      descriptor="surf")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        surf(imgs)
+    assert surf(imgs, device="cpu").desc.shape == (2, 32, 64)
+
+
+def test_front_ends_default_to_gpu(no_cuda):
+    """The stereo front-end and the oriented-BRIEF and SURF extractors raise without a
+    GPU, and run when asked for the CPU."""
+    from vo_tpu_torch.engine.pipeline import stereo_extract_and_backproject
+    from vo_tpu_torch.features.stereo import stereo_depth_at
+
+    rng = np.random.default_rng(64)
+    imgs = rng.uniform(0, 255, (2, 96, 200)).astype(np.float32)
+    K = np.array([[100.0, 0, 100], [0, 100, 48], [0, 0, 1]], np.float32)
+    kp, valid = np.array([[150.0, 40.0]], np.float32), np.ones(1, bool)
+    calls = [lambda **kw: stereo_depth_at(imgs[0], imgs[1], kp, valid, K, 0.5,
+                                          max_disp=32, **kw),
+             lambda **kw: stereo_extract_and_backproject(
+                 OrbLikeExtractor(max_kp=16), imgs, imgs, K, 0.5, max_disp=32, **kw),
+             lambda **kw: OrbLikeExtractor(max_kp=16, oriented=True)(imgs, **kw),
+             lambda **kw: OrbLikeExtractor(max_kp=16, response="hessian",
+                                           descriptor="surf")(imgs, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
 
 
 def test_refinement_and_solvers_default_to_gpu(no_cuda):

@@ -13,8 +13,8 @@ back to the host: the caller reads the result once. What differs on the card:
   check, so a singular system gives non-finite values (a step that is then rejected,
   or a result the caller skips), as ``jnp.linalg.solve`` does, where
   ``torch.linalg.solve`` would raise and synchronise with the host;
-- ``segment_sum`` is ``index_add_``, which sums with atomics on CUDA: the landmark
-  and coupling block sums are not bit-stable from run to run;
+- ``segment_sum`` is ``ba/segment.py``'s fixed-order sum (the ids sorted once per
+  call, each segment summed in order), so a solve on the card is bitwise repeatable;
 - S's landmark correction is one (6P, 3L) x (3L, 6P) product; no (L, 6P, 6P) array is
   formed.
 
@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from vo_tpu_torch.ba.segment import segment_sum, segments
 from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.geometry.se3 import se3_exp
 from vo_tpu_torch.geometry.so3 import hat
@@ -124,27 +125,34 @@ def _residuals_and_jacobians(poses, points, prob: BAProblem, cfg: BAConfig,
     return r, Jp, Jl, w
 
 
-def _assemble_reduced_system(r, Jp, Jl, w, obs_lm, L, damping):
+def _segment_plans(obs_lm, L):
+    """The segment plans of the landmark blocks (by landmark) and of the couplings
+    (by landmark and pose): fixed for a problem, so sorted once per solve."""
+    P, M = obs_lm.shape
+    flat_lm = obs_lm.reshape(-1)
+    pose_ids = torch.arange(P, device=obs_lm.device).repeat_interleave(M)
+    return segments(flat_lm, L), segments(flat_lm * P + pose_ids, L * P)
+
+
+def _assemble_reduced_system(r, Jp, Jl, w, obs_lm, L, damping, plans=None):
     """Schur-complement assembly. Returns (S (6P, 6P), g (6P,), lm_terms).
 
     Hpp: (P, 6, 6) block-diag; Hll: (L, 3, 3) block-diag; U (L, 6P, 3) stacks each
-    landmark's per-pose couplings. S = Hpp - sum_l U_l Hll_l^-1 U_l^T.
+    landmark's per-pose couplings. S = Hpp - sum_l U_l Hll_l^-1 U_l^T. ``plans`` are
+    ``_segment_plans(obs_lm, L)``, made here when not given.
     """
     P, M = obs_lm.shape
+    by_lm, by_lm_pose = plans if plans is not None else _segment_plans(obs_lm, L)
     Hpp = torch.einsum("pmik,pmil,pm->pkl", Jp, Jp, w)              # (P, 6, 6)
     bp = -torch.einsum("pmik,pmi,pm->pk", Jp, r, w)                 # (P, 6)
 
-    flat_lm = obs_lm.reshape(-1)
-    Hll_obs = torch.einsum("pmik,pmil,pm->pmkl", Jl, Jl, w).reshape(-1, 3, 3)
-    Hll = Hll_obs.new_zeros((L, 3, 3)).index_add_(0, flat_lm, Hll_obs)
-    bl_obs = -torch.einsum("pmik,pmi,pm->pmk", Jl, r, w).reshape(-1, 3)
-    bl = bl_obs.new_zeros((L, 3)).index_add_(0, flat_lm, bl_obs)
+    Hll = segment_sum(torch.einsum("pmik,pmil,pm->pmkl", Jl, Jl, w).reshape(-1, 3, 3),
+                      by_lm)
+    bl = segment_sum(-torch.einsum("pmik,pmi,pm->pmk", Jl, r, w).reshape(-1, 3), by_lm)
 
     # U[l, p] = sum of the (6, 3) couplings of pose p's observations of landmark l.
     Wpl = torch.einsum("pmik,pmil,pm->pmkl", Jp, Jl, w).reshape(-1, 6, 3)
-    pose_ids = torch.arange(P, device=obs_lm.device).repeat_interleave(M)
-    U = Wpl.new_zeros((L * P, 6, 3)).index_add_(0, flat_lm * P + pose_ids, Wpl)
-    U = U.reshape(L, P * 6, 3)
+    U = segment_sum(Wpl, by_lm_pose).reshape(L, P * 6, 3)
 
     inv3 = damped_inv3(Hll, damping)                                # (L, 3, 3)
     Hinv_Ut = inv3 @ U.transpose(1, 2)                              # (L, 3, 6P)
@@ -209,11 +217,14 @@ def bundle_adjust(prob: BAProblem, cfg: BAConfig = BAConfig(),
     gauge = torch.ones(6 * P, dtype=poses.dtype, device=dev)
     gauge[:6] = 0.0
 
+    plans = _segment_plans(prob.obs_lm, L)
+
     costs = []
     for _ in range(cfg.iterations):
         r, Jp, Jl, w = _residuals_and_jacobians(poses, points, prob, cfg)
         cost0 = _total_cost(r, w)
-        S, g, lm_terms = _assemble_reduced_system(r, Jp, Jl, w, prob.obs_lm, L, damping)
+        S, g, lm_terms = _assemble_reduced_system(r, Jp, Jl, w, prob.obs_lm, L, damping,
+                                                  plans)
 
         # LM damping on the reduced camera system + gauge fixing.
         S = S + damping * torch.diag(torch.clamp(torch.diagonal(S), min=1e-6))

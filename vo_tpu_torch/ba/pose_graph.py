@@ -8,8 +8,9 @@ iteration count, LM damping, node 0 gauge-fixed, a dense (6N, 6N) solve.
 
 As in ``ba/bundle_adjust.py``: a Python loop with the carry on the device, step
 acceptance by ``torch.where``, ``torch.linalg.solve_ex`` without its error check (a
-singular system gives a non-finite step, which is rejected), and ``index_add_`` for
-the block sums (atomics on CUDA: not bit-stable from run to run).
+singular system gives a non-finite step, which is rejected), and ``ba/segment.py``'s
+fixed-order ``segment_sum`` for the block sums, so a solve on the card is bitwise
+repeatable.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from vo_tpu_torch.ba.segment import segment_sum, segments
 from vo_tpu_torch.device import resolve_device, to_device
 from vo_tpu_torch.geometry.se3 import pose_inverse, se3_exp, se3_log
 from vo_tpu_torch.geometry.so3 import hat
@@ -67,7 +69,9 @@ def optimize_pose_graph(poses, edges_ij, edges_z, edges_w,
         (1, 6), device=dev)
     w = w6[:, :, None]          # scales residual rows: J^T diag(w6) J
     Jj = torch.eye(6, device=dev).expand(E, 6, 6)
-    ids = torch.cat([ii * N + ii, jj * N + jj, ii * N + jj, jj * N + ii])
+    by_block = segments(torch.cat([ii * N + ii, jj * N + jj, ii * N + jj, jj * N + ii]),
+                        N * N)
+    by_node = segments(torch.cat([ii, jj]), N)
     gauge = torch.ones(6 * N, device=dev)
     gauge[:6] = 0.0
 
@@ -90,11 +94,9 @@ def optimize_pose_graph(poses, edges_ij, edges_z, edges_w,
 
         # Dense block assembly: block sums on (i*N + j) block ids.
         blocks = torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)], dim=0)
-        Hgrid = blocks.new_zeros((N * N, 6, 6)).index_add_(0, ids, blocks)
+        Hgrid = segment_sum(blocks, by_block)
         H = Hgrid.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
-        bvec = e.new_zeros((N, 6)).index_add_(0, torch.cat([ii, jj]),
-                                              torch.cat([bi, bj], dim=0))
-        g = bvec.reshape(6 * N)
+        g = segment_sum(torch.cat([bi, bj], dim=0), by_node).reshape(6 * N)
 
         # LM damping scaled to H's own diagonal.
         H = H + damping * torch.diag(torch.clamp(torch.diagonal(H), min=1e-6))

@@ -2,7 +2,8 @@
 memory (``run_offline_vo``) or streamed from a loader (``run_offline_vo_streaming``),
 with mid-run checkpoints.
 
-Port of ``vo_tpu/engine/pipeline.py`` (all but ``stereo_extract_and_backproject``).
+Port of ``vo_tpu/engine/pipeline.py``, with the true-stereo front-end
+(``stereo_extract_and_backproject``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from vo_tpu_torch.device import resolve_device, to_device
 from vo_tpu_torch.engine.vo import VOConfig, VOEngine, VOStepDiagnostics
 from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
 from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
+from vo_tpu_torch.features.stereo import stereo_depth_at
 from vo_tpu_torch.geometry.camera import depth_to_3d_at, unproject
 from vo_tpu_torch.port_state import state_from_numpy
 
@@ -74,6 +76,27 @@ def gather_depth_u16mm(deps: np.ndarray, kp_i16: np.ndarray) -> np.ndarray:
         return z
     z = np.nan_to_num(np.asarray(z, np.float32), nan=0.0, posinf=0.0, neginf=0.0)
     return np.round(np.clip(z, 0.0, 65.535) * 1000.0).astype(np.uint16)
+
+
+def stereo_extract_and_backproject(extractor: Extractor, left, right, K, baseline: float,
+                                   max_disp: int = 128,
+                                   device: str | torch.device | None = None):
+    """True-stereo front-end: features of the left images, depth at each keypoint by
+    ZNCC block matching along its row of the right image (``features/stereo.py``),
+    back-projected -> (Features, kp3d (F, K, 3)).
+
+    left, right (F, H, W) rectified gray, arrays or tensors, moved to ``device``
+    (default cuda; raises if there is no GPU). A failed stereo match gives z == 0,
+    which the engine's depth gate rejects, while the keypoint stays a 2-D observation
+    for matching.
+    """
+    dev = resolve_device(device)
+    left = to_device(left, dev)
+    K = to_device(K, dev, torch.float32)
+    feats = extractor(left, device=dev)
+    depth, ok = stereo_depth_at(left.to(torch.float32), right, feats.kp, feats.valid, K,
+                                baseline, max_disp=max_disp, device=dev)
+    return feats, unproject(feats.kp.to(torch.float32), torch.where(ok, depth, 0.0), K)
 
 
 def run_offline_vo(

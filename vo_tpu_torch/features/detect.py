@@ -51,9 +51,11 @@ def dog_response(gray: torch.Tensor, sigma: float = 1.0, k: float = 1.6) -> torc
 
 
 def _gather_hw(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """img (B, H, W) at integer (B, K) rows y and columns x."""
-    W = img.shape[-1]
-    return torch.gather(img.reshape(img.shape[0], -1), 1, y * W + x)
+    """img (B, H, W) at integer rows y and columns x, each (B, ...) and broadcast
+    together -> (B, ...)."""
+    B, W = img.shape[0], img.shape[-1]
+    idx = y * W + x
+    return torch.gather(img.reshape(B, -1), 1, idx.reshape(B, -1)).reshape(idx.shape)
 
 
 def refine_subpixel(response: torch.Tensor, kp: torch.Tensor,

@@ -1,7 +1,8 @@
 """Batched feature extraction: images in, fixed-budget (kp, desc, score, valid) out.
 
-Port of ``vo_tpu/features/extractor.py``: Harris, Shi-Tomasi or DoG response,
-fixed-budget detection, upright dense-packed BRIEF or upright gradhist descriptors.
+Port of ``vo_tpu/features/extractor.py``: Harris, Shi-Tomasi, DoG or box-filter
+Hessian response, fixed-budget detection, then upright dense-packed BRIEF, oriented
+BRIEF, upright gradhist or upright SURF-64 descriptors.
 """
 
 from __future__ import annotations
@@ -13,22 +14,20 @@ import numpy as np
 import torch
 
 from vo_tpu_torch.device import resolve_device
+from vo_tpu_torch.features.brief import oriented_brief_descriptors
 from vo_tpu_torch.features.dense_brief import BRIEF_BITS, upright_brief_descriptors
 from vo_tpu_torch.features.detect import (detect_keypoints, dog_response, harris_response,
                                           shi_tomasi_response)
 from vo_tpu_torch.features.gradhist import gradhist_descriptors
+from vo_tpu_torch.features.surf import hessian_response, surf_descriptors
 from vo_tpu_torch.ops.image import rgb_to_gray
 
-_RESPONSES = {"harris": harris_response, "dog": dog_response}
+_RESPONSES = {"harris": harris_response, "dog": dog_response, "hessian": hessian_response}
 
 
 def response_fn(name: str):
     """The detector response for ``name``: as in the JAX package, any name other than
     'harris', 'dog' and 'hessian' takes the Shi-Tomasi response."""
-    if name == "hessian":
-        raise NotImplementedError(
-            "response='hessian' is not ported yet (ROADMAP queue 1, item 7: "
-            "features/surf.py)")
     return _RESPONSES.get(name, shi_tomasi_response)
 
 
@@ -44,8 +43,8 @@ class Features(NamedTuple):
 @dataclass(frozen=True)
 class OrbLikeExtractor:
     """Single-scale corner or blob extractor; the same fields and defaults as the JAX
-    one. As there, ``oriented`` steers BRIEF only: gradhist is upright here (the
-    oriented variant runs in ``MultiScaleClassicExtractor``)."""
+    one. As there, ``oriented`` steers BRIEF only: gradhist and SURF are upright here
+    (the oriented gradhist runs in ``MultiScaleClassicExtractor``)."""
 
     max_kp: int = 2048
     nms_size: int = 5
@@ -53,17 +52,9 @@ class OrbLikeExtractor:
     border: int = 21  # >= brief patch radius + 1
     subpixel: bool = False
     bits: int = BRIEF_BITS
-    response: str = "harris"   # 'harris' | 'dog'; any other name: Shi-Tomasi
-    oriented: bool = False
-    descriptor: str = "brief"  # 'brief' | 'gradhist'
-
-    def __post_init__(self):
-        response_fn(self.response)
-        if self.descriptor not in ("brief", "gradhist") or (
-                self.descriptor == "brief" and self.oriented):
-            raise NotImplementedError(
-                f"descriptor={self.descriptor!r}, oriented={self.oriented} is not "
-                "ported yet (ROADMAP queue 1, item 7: other front-ends)")
+    response: str = "harris"   # 'harris' | 'dog' | 'hessian'; any other: Shi-Tomasi
+    oriented: bool = False     # BRIEF only: rotation-steered patch BRIEF
+    descriptor: str = "brief"  # 'brief' (+-1) | 'gradhist' | 'surf' (float, bf16)
 
     def __call__(self, images, device: str | torch.device | None = None) -> Features:
         """images: (B, H, W, 3) RGB or (B, H, W) gray, numpy or tensor.
@@ -82,6 +73,10 @@ class OrbLikeExtractor:
         )
         if self.descriptor == "gradhist":
             desc = gradhist_descriptors(gray, kp, valid)
+        elif self.descriptor == "surf":
+            desc = surf_descriptors(gray, kp, valid)
+        elif self.oriented:
+            desc = oriented_brief_descriptors(gray, kp, valid, bits=self.bits)
         else:
             desc = upright_brief_descriptors(gray, kp, valid, bits=self.bits)
         return Features(kp=kp, desc=desc, score=score, valid=valid)

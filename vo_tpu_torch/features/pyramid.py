@@ -19,20 +19,21 @@ from vo_tpu_torch.features.dense_brief import BRIEF_BITS, upright_brief_descript
 from vo_tpu_torch.features.detect import _top_k, detect_keypoints
 from vo_tpu_torch.features.extractor import Features, response_fn
 from vo_tpu_torch.features.gradhist import gradhist_descriptors, oriented_gradhist_descriptors
+from vo_tpu_torch.features.surf import surf_descriptors
 from vo_tpu_torch.ops.image import resize_bilinear, rgb_to_gray
 
 
 @dataclass(frozen=True)
 class MultiScaleClassicExtractor:
-    """Scale-covariant Harris / Shi-Tomasi / DoG + BRIEF / gradhist extraction; the
-    same fields and defaults as the JAX one, and the same ``Features`` as
-    ``OrbLikeExtractor``."""
+    """Scale-covariant Harris / Shi-Tomasi / DoG / Hessian + BRIEF / gradhist / SURF
+    extraction; the same fields and defaults as the JAX one, and the same ``Features``
+    as ``OrbLikeExtractor``."""
 
     max_kp: int = 2048
     n_scales: int = 4
     scale_f: float = 2 ** 0.5
-    response: str = "harris"      # 'harris' | 'dog'; any other name: Shi-Tomasi
-    descriptor: str = "brief"     # 'brief' | 'gradhist'
+    response: str = "harris"      # 'harris' | 'dog' | 'hessian'; any other: Shi-Tomasi
+    descriptor: str = "brief"     # 'brief' | 'gradhist' | 'surf'
     oriented: bool = False        # gradhist only: dominant-orientation normalisation
     nms_size: int = 5
     rel_threshold: float = 1e-4
@@ -41,13 +42,6 @@ class MultiScaleClassicExtractor:
     subpixel: bool = False
     # Per-level candidate budget = max_kp * level_budget_decay**level (floor 128).
     level_budget_decay: float = 1.0
-
-    def __post_init__(self):
-        response_fn(self.response)
-        if self.descriptor not in ("brief", "gradhist"):
-            raise NotImplementedError(
-                f"descriptor={self.descriptor!r} is not ported yet (ROADMAP queue 1, "
-                "item 7: features/surf.py)")
 
     def __call__(self, images, device: str | torch.device | None = None) -> Features:
         """images: (B, H, W, 3) RGB or (B, H, W) gray, numpy or tensor.
@@ -104,4 +98,6 @@ class MultiScaleClassicExtractor:
         if self.descriptor == "gradhist":
             fn = oriented_gradhist_descriptors if self.oriented else gradhist_descriptors
             return fn(g, kp, valid)
+        if self.descriptor == "surf":
+            return surf_descriptors(g, kp, valid)
         return upright_brief_descriptors(g, kp, valid, bits=self.bits)

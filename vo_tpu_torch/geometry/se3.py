@@ -9,6 +9,10 @@ from vo_tpu_torch.geometry.so3 import hat, so3_exp, so3_log
 _EPS = 1e-8
 
 
+def identity_pose(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def pose_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation + (..., 3) translation -> (..., 4, 4) homogeneous pose."""
     batch = R.shape[:-2]
@@ -34,6 +38,33 @@ def pose_inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = T[..., :3, :3].transpose(-1, -2)
     t_inv = -(Rt @ T[..., :3, 3:4])[..., 0]
     return pose_from_rt(Rt, t_inv)
+
+
+def pose_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Compose homogeneous transforms: A @ B, batched."""
+    return A @ B
+
+
+def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) transforms to (..., N, 3) points."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return torch.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+
+
+def chain_relative_poses(rel_poses: torch.Tensor,
+                         initial: torch.Tensor | None = None) -> torch.Tensor:
+    """global[i] = initial @ rel[0] @ rel[1] @ ... @ rel[i] for (N, 4, 4) relative
+    poses, as an inclusive prefix product in log2(N) batched steps (the JAX package
+    uses an associative scan: the same products, grouped in another order)."""
+    out = rel_poses
+    step = 1
+    while step < out.shape[0]:
+        out = torch.cat([out[:step], out[:-step] @ out[step:]])
+        step *= 2
+    if initial is not None:
+        out = torch.einsum("ij,njk->nik", initial, out)
+    return out
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

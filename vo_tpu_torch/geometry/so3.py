@@ -68,3 +68,8 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     w_pi = sign * axis * theta[..., None]
 
     return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+# OpenCV-style names (rotation vector <-> matrix), as in the JAX package.
+rodrigues = so3_exp
+inv_rodrigues = so3_log

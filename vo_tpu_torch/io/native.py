@@ -75,6 +75,15 @@ def _load_lib() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the loader builds and loads here (built at the first call)."""
+    try:
+        _load_lib()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 class NativeRGBDSequence:
     """Streaming reader over (*.png, *_depth.npy) pairs with C++ decode + prefetch."""
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _NEG = -1e30
@@ -91,3 +92,10 @@ def ratio_match(desc_a, desc_b, valid_a=None, valid_b=None, ratio: float = 0.85,
     # Rows whose best hit was an invalid (masked) column carry sim ~ _NEG: drop them.
     mask = mask & (top2_sim[:, 0] > _NEG * 0.5)
     return MatchResult(idx=nn12, mask=mask, sim=torch.where(mask, top2_sim[:, 0], 0.0))
+
+
+def matches_to_pairs(result: MatchResult) -> np.ndarray:
+    """The accepted matches as a host (M, 2) int64 array of [idx_a, idx_b] rows."""
+    idx = result.idx.cpu().numpy()
+    rows = np.nonzero(result.mask.cpu().numpy())[0]
+    return np.stack([rows, idx[rows]], axis=1) if rows.size else np.zeros((0, 2), np.int64)

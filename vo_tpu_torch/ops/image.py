@@ -9,6 +9,7 @@ The pyramid's resize is two dense fp32 products, as the JAX package leaves it to
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +50,12 @@ def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) ->
     return _conv1d(_conv1d(img, k, axis=1), k, axis=2)
 
 
+def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Separable size x size box (mean) filter over (B, H, W), zero-padded SAME."""
+    k = [float(np.float32(1.0 / size))] * size
+    return _conv1d(_conv1d(img, k, axis=1), k, axis=2)
+
+
 def sobel_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Sobel dx, dy over (B, H, W) via separable [1 2 1] x [-1 0 1] kernels."""
     smooth = [1.0, 2.0, 1.0]
@@ -62,6 +69,28 @@ def maxpool2d_same(img: torch.Tensor, size: int) -> torch.Tensor:
     """size x size max pool, stride 1, SAME, padded with -inf (the NMS block)."""
     pad = (size - 1) // 2
     return F.max_pool2d(img[:, None], size, stride=1, padding=pad)[:, 0]
+
+
+def avgpool2d(img: torch.Tensor, size: int) -> torch.Tensor:
+    """size x size average pool with stride size over (B, H, W) (VALID: a partial
+    last window is dropped)."""
+    return F.avg_pool2d(img[:, None], size, stride=size)[:, 0]
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample an (H, W) image at (..., 2) [x, y] float locations, bilinearly, with the
+    coordinates clamped into the image."""
+    H, W = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.0)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx = x - x0
+    fy = y - y0
+    v00, v01, v10, v11 = img[y0, x0], img[y0, x1], img[y1, x0], img[y1, x1]
+    return (1 - fy) * ((1 - fx) * v00 + fx * v01) + fy * ((1 - fx) * v10 + fx * v11)
 
 
 def _resize_matrix(n_in: int, n_out: int, device=None) -> torch.Tensor:

@@ -14,8 +14,9 @@ work (``run_offline_vo_streaming``). Optionally refines the trajectory (``--refi
 ``<output_filename>.npy`` (stacked 4x4 poses) and evaluates against
 ``gt_txt_file_path``.
 
-Not ported yet, and refused before any frame is read: ``visualize_results: true``
-(ROADMAP queue 1 item 13), ``feature_extractor: surf`` (item 7) and ``r2d2`` (item 8).
+``feature_extractor`` is ``orb``, ``sift`` or ``surf`` (box-filter Hessian + SURF-64,
+matched in fp32). Not ported yet, and refused before any frame is read:
+``visualize_results: true`` (ROADMAP queue 1 item 13) and ``r2d2`` (item 8).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from vo_tpu_torch.io.poses import kitti_gt_to_modified_txt, save_poses_npy
 
 def build_extractor(cfg: RunConfig):
     classic = {"orb": dict(response="harris", descriptor="brief"),
-               "sift": dict(response="dog", descriptor="gradhist")}
+               "sift": dict(response="dog", descriptor="gradhist"),
+               "surf": dict(response="hessian", descriptor="surf")}
     if cfg.feature_extractor in classic:
         kw = classic[cfg.feature_extractor]
         if cfg.octaves > 1:
@@ -52,9 +54,6 @@ def build_extractor(cfg: RunConfig):
         if cfg.feature_extractor == "orb":
             return OrbLikeExtractor(max_kp=cfg.max_keypoints)
         return OrbLikeExtractor(max_kp=cfg.max_keypoints, **kw)
-    if cfg.feature_extractor == "surf":
-        raise NotImplementedError("feature_extractor 'surf' is not ported yet (ROADMAP "
-                                  "queue 1, item 7: features/surf.py)")
     if cfg.feature_extractor == "r2d2":
         raise NotImplementedError("feature_extractor 'r2d2' is not ported yet (ROADMAP "
                                   "queue 1, item 8: R2D2)")
