@@ -14,15 +14,16 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    calls in a row that grow and shrink the cached scratch;
 4. main path: the port's ``run_offline_vo`` on the 160-frame 376 x 1232 synthetic
    RGB-D slalom (2048 keypoints, 512 hypotheses); asserts the trajectory gate, one
-   wgmma launch per tracked frame, and identical poses from the plain matcher;
-5. float-mode path: the engine with the ``ratio_mutual_nn`` matcher on the first 32
+   wgmma launch per tracked frame, and identical poses from the plain matcher (first 48
+   frames);
+5. float-mode path: the engine with the ``ratio_mutual_nn`` matcher on the first 16
    frames' descriptors as fp32 unit vectors (+-1/16); asserts one SIMT launch per
    tracked frame and identical poses from the plain matcher;
 6. SIFT-config path: ``run_offline_vo`` on the same frames with the multi-scale DoG +
    oriented gradhist extractor and the ``ratio_float`` matcher (``bench.py:337-386``);
    asserts the gate and one SIMT launch per tracked frame; the plain-matcher engine on
-   the same features passes the gate too; times extraction and the engine;
-7. timing: extraction and the engine over the first 48 frames, and the kernels
+   the first 48 frames' features passes the gate too; times extraction and the engine;
+7. timing: extraction and the engine over the first 32 frames, and the kernels
    (wgmma at 2048 x 2048 x 256 bf16;
    SIMT at 2048 x 2048 x 128 on the SIFT frames' descriptors and at 2048 x 2048 x 256
    on the main path's as fp32) against their plain versions, a library yardstick and
@@ -32,12 +33,12 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    io-included format (gray PNG + ``<u2`` millimetre npy, ``bench.py:81-102``); the
    ``vo_run`` CLI on them (native loader, sparse depth transfer, ``--eval``): the
    gate, one wgmma launch per tracked frame, and ``run_offline_vo``'s poses on the
-   decoded frames; a ``--limit 96`` run's checkpoint resumed to the uninterrupted
-   poses; the SIFT and SURF configs through the CLI (48 frames each, SIMT launches
-   only); ``OnlineVO`` on 16 frames against ``run_offline_vo``; then, over the first
-   48 frames, each streaming pass (2 sparse, 1 float32, 1 uint16mm) followed by a pass
-   of the in-memory extract + engine, the loader's decode-only ceiling, and a profile
-   of two chunks of the sparse stream;
+   first 48 decoded frames; a ``--limit 32`` run's checkpoint resumed to frame 64 and
+   the uninterrupted poses; the SIFT and SURF configs through the CLI (48 frames each,
+   SIMT launches only); ``OnlineVO`` on 16 frames against ``run_offline_vo``; then,
+   over the first 32 frames, each streaming pass (2 sparse, 1 float32, 1 uint16mm)
+   followed by a pass of the in-memory extract + engine, the loader's decode-only
+   ceiling, and a profile of two chunks of the sparse stream;
 9. refinement: the 240-frame loop workload of ``bench.py:478-576`` (rendered in the
    same pool behind the slalom) through ``run_offline_vo``; ``refine_full``'s adaptive
    branch cold and warm with bench.py's gate (``refined_better`` printed, its ATE
@@ -62,7 +63,19 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
     frames 32-95; SURF (``response="hessian"``, ``descriptor="surf"``, ``ratio_float``)
     and oriented BRIEF on the first 48 frames: the gate, 47 SIMT or wgmma launches,
     (2048, 64) bf16 SURF descriptors, the SIMT kernel against its plain version at
-    2048 x 2048 x 64, identical plain-matcher poses for oriented BRIEF.
+    2048 x 2048 x 64, identical plain-matcher poses for oriented BRIEF;
+11. mono and homography: ``MonoVOEngine(MonoVOConfig())`` on the main path's features
+    of the first 48 frames: one wgmma launch per tracked frame and no SIMT launch, the
+    plain matcher's poses exactly, tests/test_mono_engine.py's limits (accept rate,
+    median accepted step, end drift), beside the JAX package's numbers on the same
+    frames; its time per frame, a profile and the host syncs per frame;
+    ``homography_ransac`` on a plane-induced set with 30 % outliers on the card against
+    the CPU and the true H;
+12. the long run, cut to 288 frames: the long-run world rendered in the same pool
+    (behind the right eye) into a git-ignored directory, then
+    ``vo_tpu_torch.runners.longrun.main`` on it: the trajectory gate, the checkpoint,
+    finite refined poses, refinement no worse than 1.05x the odometry, and one wgmma
+    launch per tracked frame of the warm-up and the run and per pair verification.
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
 line before it lists each kernel and shape with its launches, error, times and bound.
@@ -73,7 +86,9 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -83,7 +98,7 @@ EXTRACT_BATCH = 16
 STEP = 0.8
 K = np.array([[721.53, 0.0, 609.55], [0.0, 721.53, 172.85], [0.0, 0.0, 1.0]], np.float32)
 
-F_FLOAT = 32           # depth of the float-mode path
+F_FLOAT = 16           # depth of the float-mode path
 # The loop workload of bench.py's refine block (bench.py:497-503): out, U-turn, back
 # on a parallel lane, U-turn to the start; 240 frames.
 LOOP = dict(out_frames=64, turn_frames=56, step=0.8, turn_step=0.22)
@@ -91,14 +106,32 @@ LOOP = dict(out_frames=64, turn_frames=56, step=0.8, turn_step=0.22)
 # enough that the median loop rotation residual exceeds refine_full's 1 deg threshold.
 LOOP_NOISE_RAD, LOOP_NOISE_M = 0.0015, 0.01
 N_PASSES = 2           # timed passes per path (median)
-F_TIMED = 48           # frames of each timed pass, and of the SURF and oriented paths
+F_TIMED = 48           # frames of the SURF, oriented and mono paths and of the plain-matcher runs
+F_PASS = 32            # frames of each timed pass (whole batches of 16)
+F_PART = 32            # the CLI's interrupted run stops here; the resume runs to 2 * F_PART
 BASELINE_M = 0.54      # stereo baseline of bench.py's true-stereo workload (:397)
 STEREO_BATCH = 8       # its extraction batch (:411)
+F_MONO = 48            # frames of the mono path (phase 11)
+F_LONG = 288           # frames of the cut long run (phase 12): 230 m, a checkpoint at 256
+# The JAX package's MonoVOEngine(MonoVOConfig()) on the first 48 slalom frames, with its
+# own OrbLikeExtractor(max_kp=2048) features, on a CPU (a reference, not a target), as
+# `python tests/refine_reference.py mono 48` prints it.
+JAX_MONO_48 = dict(accept=1.0, median_step_m=0.8291, promotions=23, end_drift_m=0.1132,
+                   inliers=(640, 985))
 
 # H100 SXM published dense peaks (NVIDIA data sheet) for the bounds of the kernels.
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12      # fp32 on the CUDA cores
 PEAK_HBM_BYTES = 3.35e12
+
+
+def _build_dir() -> str:
+    """The git-ignored ``vo_tpu_torch/_build/`` of this checkout (created)."""
+    import vo_tpu_torch
+
+    d = os.path.join(os.path.dirname(os.path.abspath(vo_tpu_torch.__file__)), "_build")
+    os.makedirs(d, exist_ok=True)
+    return d
 
 
 def _card() -> str:
@@ -343,7 +376,7 @@ def _gate(name, poses, accepted, gt, launches=None) -> bool:
 
 def _timed_passes(extractor, engine, imgs_d, deps_d, Kd, n_passes=N_PASSES):
     """Extraction and engine ms/frame over ``n_passes`` passes (median) of the first
-    ``F_TIMED`` frames, and the features of the last pass."""
+    ``F_PASS`` frames, and the features of the last pass."""
     import torch
 
     from vo_tpu_torch.engine.pipeline import extract_and_backproject
@@ -354,7 +387,7 @@ def _timed_passes(extractor, engine, imgs_d, deps_d, Kd, n_passes=N_PASSES):
         t1 = time.perf_counter()
         chunks = [extract_and_backproject(extractor, imgs_d[s:s + EXTRACT_BATCH],
                                           deps_d[s:s + EXTRACT_BATCH], Kd)
-                  for s in range(0, F_TIMED, EXTRACT_BATCH)]
+                  for s in range(0, F_PASS, EXTRACT_BATCH)]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         feats = [torch.cat([c[0][i] for c in chunks]) for i in (0, 1, 3)]
@@ -363,8 +396,8 @@ def _timed_passes(extractor, engine, imgs_d, deps_d, Kd, n_passes=N_PASSES):
         t3 = time.perf_counter()
         engine.run_sequence(*feats, k3, Kd)
         torch.cuda.synchronize()
-        t_ex.append((t2 - t1) / F_TIMED * 1e3)
-        t_en.append((time.perf_counter() - t3) / F_TIMED * 1e3)
+        t_ex.append((t2 - t1) / F_PASS * 1e3)
+        t_en.append((time.perf_counter() - t3) / F_PASS * 1e3)
     return float(np.median(t_ex)), float(np.median(t_en)), t_ex, t_en, (*feats, k3)
 
 
@@ -391,12 +424,8 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
     bench's io-included format (8-bit gray PNG + ``<u2`` millimetre npy) in a temporary
     directory under the git-ignored ``vo_tpu_torch/_build/``, removed at the end.
     Returns the SIMT launches of the SURF config's CLI run."""
-    import shutil
-    import tempfile
-
     import torch
 
-    import vo_tpu_torch
     from vo_tpu_torch.engine.online import OnlineVO
     from vo_tpu_torch.engine.pipeline import run_offline_vo, run_offline_vo_streaming
     from vo_tpu_torch.engine.vo import VOEngine
@@ -405,10 +434,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
     from vo_tpu_torch.io.poses import write_kitti_txt
     from vo_tpu_torch.runners import vo_run
 
-    build_dir = os.path.join(os.path.dirname(os.path.abspath(vo_tpu_torch.__file__)),
-                             "_build")
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="smoke_seq_", dir=build_dir)
+    tmp = tempfile.mkdtemp(prefix="smoke_seq_", dir=_build_dir())
     sub_s = {}
     try:
         t0 = time.perf_counter()
@@ -457,34 +483,39 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
                      counts["wgmma"]):
             raise AssertionError("CLI run failed the trajectory gate")
 
-        # The in-memory pipeline on the decoded frames gives the CLI's poses.
+        # The in-memory pipeline on the first decoded frames gives the CLI's poses.
+        m = F_TIMED
         ref_poses, ref_diag = run_offline_vo(
-            gray, metres, K, vo_config=cfg.vo, extractor=vo_run.build_extractor(cfg),
-            extraction_batch=EXTRACT_BATCH, device="cuda")
-        diff = float(np.abs(res.poses - ref_poses).max())
-        same_diag = all(np.array_equal(a, b) for a, b in zip(res.diag, ref_diag))
-        print(f"CLI vs run_offline_vo on the decoded frames: largest pose difference "
+            gray[:m], metres[:m], K, vo_config=cfg.vo,
+            extractor=vo_run.build_extractor(cfg), extraction_batch=EXTRACT_BATCH,
+            device="cuda")
+        diff = float(np.abs(res.poses[:m] - ref_poses).max())
+        same_diag = all(np.array_equal(a[:m - 1], b) for a, b in zip(res.diag, ref_diag))
+        print(f"CLI vs run_offline_vo on the first {m} decoded frames: largest pose difference "
               f"{diff:.3e}, identical = {diff == 0.0}, diagnostics equal = {same_diag}")
         if diff > 1e-5:
             raise AssertionError("the CLI's poses differ from run_offline_vo's")
 
         # An interrupted run (a finished run rewrites its checkpoint at its last frame),
-        # then a resume over the whole sequence.
+        # then a resume to frame 2 * F_PART.
         ck = os.path.join(tmp, "ck.npz")
         part_yaml, _ = yaml("part", "feature_extractor: orb")
-        part = vo_run.run(["--config", part_yaml, "--limit", "96", "--checkpoint", ck,
-                           "--checkpoint-every", "64"] + sparse_flags)
+        part = vo_run.run(["--config", part_yaml, "--limit", str(F_PART), "--checkpoint",
+                           ck, "--checkpoint-every", str(F_PART // 2)] + sparse_flags)
         with np.load(ck) as blob:
             next_frame = int(blob["next_frame"])
-        if part.rc != 0 or next_frame != 96:
+        if part.rc != 0 or next_frame != F_PART:
             raise AssertionError(f"interrupted run: rc {part.rc}, checkpoint at {next_frame}")
         _reset_counts()
-        resumed = vo_run.run(["--config", part_yaml, "--resume", ck] + sparse_flags)
+        resumed = vo_run.run(["--config", part_yaml, "--resume", ck, "--limit",
+                              str(2 * F_PART)] + sparse_flags)
         counts_r = _counts()
-        diff_r = float(np.abs(resumed.poses - res.poses).max())
-        print(f"resume from frame {next_frame}: launches {counts_r}, largest pose difference "
-              f"to the uninterrupted run {diff_r:.3e}, identical = {diff_r == 0.0}")
-        if counts_r != {"wgmma": F - 96, "simt": 0} or diff_r > 1e-5:
+        diff_r = float(np.abs(resumed.poses - res.poses[:2 * F_PART]).max())
+        print(f"resume from frame {next_frame} to {2 * F_PART}: launches {counts_r}, largest "
+              f"pose difference to the uninterrupted run {diff_r:.3e}, identical = "
+              f"{diff_r == 0.0}")
+        if (counts_r != {"wgmma": F_PART, "simt": 0} or resumed.poses.shape[0] != 2 * F_PART
+                or diff_r > 1e-5):
             raise AssertionError("the resumed run does not reproduce the uninterrupted one")
 
         # The SIFT config through the CLI.
@@ -527,13 +558,13 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
 
         sub_s["checks"] = time.perf_counter() - t_checks
 
-        # Timing over the first F_TIMED frames. The engine's wall time drifts with the
+        # Timing over the first F_PASS frames. The engine's wall time drifts with the
         # host, so each streaming pass is followed by a pass of the in-memory extract
         # + engine on the decoded frames, already on the card, and the two are
         # compared. Every mode reads gray images; the loader emits millimetres where
         # the mode sends them.
         t0 = time.perf_counter()
-        n_t = F_TIMED
+        n_t = F_PASS
 
         def stream(mode: str, limit: int):
             nat = NativeRGBDSequence.try_open(seq_dir)
@@ -792,12 +823,13 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
     if not _gate(f"SURF path, {m} frames", uposes, udiag.accepted, gt[:m], counts["simt"]):
         raise AssertionError("the SURF path failed the trajectory gate")
     _, _, u_engine_ms = _engine_run(VOEngine(surf_cfg, device=dev),
-                                    (ufeats.kp, ufeats.desc, ufeats.valid), ukp3d, Kd)
+                                    (ufeats.kp[:F_PASS], ufeats.desc[:F_PASS],
+                                     ufeats.valid[:F_PASS]), ukp3d[:F_PASS], Kd)
     u_extract_ms, u_ex = _extract_ms(lambda: [extract_and_backproject(
         surf, imgs_d[s:s + EXTRACT_BATCH], deps_d[s:s + EXTRACT_BATCH], Kd)
         for s in range(0, m, EXTRACT_BATCH)], m)
     print(f"timing [{card}] SURF path: extract {u_extract_ms:.3f} ms/frame (passes "
-          f"{[round(x, 3) for x in u_ex]}), engine {u_engine_ms:.3f} ms/frame ({m} frames)")
+          f"{[round(x, 3) for x in u_ex]}), engine {u_engine_ms:.3f} ms/frame ({F_PASS} frames)")
     _profile_lines(card, "SURF extract", lambda: extract_and_backproject(
         surf, imgs_d[:EXTRACT_BATCH], deps_d[:EXTRACT_BATCH], Kd), EXTRACT_BATCH,
         u_extract_ms)
@@ -822,7 +854,8 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
         raise AssertionError("the oriented-BRIEF path failed the trajectory gate")
     ofeats4 = (ofeats.kp, ofeats.desc, ofeats.valid)
     _plain_matcher_identical("oriented BRIEF path", cfg, ofeats4, okp3d, Kd, oposes, dev)
-    _, _, o_engine_ms = _engine_run(VOEngine(cfg, device=dev), ofeats4, okp3d, Kd)
+    _, _, o_engine_ms = _engine_run(VOEngine(cfg, device=dev),
+                                    tuple(x[:F_PASS] for x in ofeats4), okp3d[:F_PASS], Kd)
     o_extract_ms, o_ex = _extract_ms(lambda: [extract_and_backproject(
         oriented, imgs_d[s:s + EXTRACT_BATCH], deps_d[s:s + EXTRACT_BATCH], Kd)
         for s in range(0, m, EXTRACT_BATCH)], m)
@@ -1077,18 +1110,11 @@ def _refine_cli(card, imgs, deps, gt) -> int:
     """``vo_run --refine --save-odometry PATH --retain sparse --depth-transfer sparse``
     on the loop frames written in phase 8's format; returns the refinement's wgmma
     launches."""
-    import shutil
-    import tempfile
-
-    import vo_tpu_torch
     from vo_tpu_torch.engine import refine
     from vo_tpu_torch.io.dataset import write_gray_u16mm_dir
     from vo_tpu_torch.runners import vo_run
 
-    build_dir = os.path.join(os.path.dirname(os.path.abspath(vo_tpu_torch.__file__)),
-                             "_build")
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="smoke_loop_", dir=build_dir)
+    tmp = tempfile.mkdtemp(prefix="smoke_loop_", dir=_build_dir())
     try:
         t0 = time.perf_counter()
         seq_dir = os.path.join(tmp, "seq")
@@ -1127,24 +1153,207 @@ def _refine_cli(card, imgs, deps, gt) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _mono_phase(card, feats, kp3d, gt, errs, dev="cuda") -> int:
+    """Phase 11: the monocular engine on the main path's features of the first
+    ``F_MONO`` frames, then ``homography_ransac`` on the card. Returns the mono path's
+    wgmma launches."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from vo_tpu_torch.engine.mono import MonoVOConfig, MonoVOEngine
+
+    sub_s = {}
+    t0 = time.perf_counter()
+    m = F_MONO
+    Kd = torch.from_numpy(K).to(dev)
+    args = (feats.kp[:m], feats.desc[:m], feats.valid[:m], kp3d[:m], Kd)
+    cfg = MonoVOConfig()
+    _reset_counts()
+    poses, diag, ms = _engine_run(MonoVOEngine(cfg, device=dev), args[:3], args[3], Kd)
+    counts = _counts()
+    if counts != {"wgmma": m - 1, "simt": 0}:
+        raise AssertionError(f"mono path launches {counts}, expected {m - 1} wgmma, 0 simt")
+    before = _counts()
+    plain, _ = MonoVOEngine(dataclasses.replace(cfg, use_match_kernel=False),
+                            device=dev).run_sequence(*args)
+    if _counts() != before:
+        raise AssertionError("the plain-matcher mono engine launched a match kernel")
+    same = bool(torch.equal(plain, poses))
+    poses_np = poses.cpu().numpy()
+    accept = diag.accepted.cpu().numpy()
+    steps = diag.step_norm.cpu().numpy()
+    inl = diag.n_inliers.cpu().numpy()
+    med = float(np.median(steps[accept])) if accept.any() else float("nan")
+    drift = float(np.linalg.norm(poses_np[-1, :3, 3] - gt[m - 1, :3, 3]))
+    ok = (same and np.isfinite(poses_np).all() and accept.mean() > 0.7
+          and abs(med - 0.8) < 0.2 and drift < 1.0)
+    print(f"mono path ({m} frames, MonoVOConfig(): ratio_binary 0.85, 128 x 48-point "
+          f"essential hypotheses): wgmma launches {counts['wgmma']}, accept "
+          f"{accept.mean():.3f}, median accepted step {med:.4f} m, keyframe promotions "
+          f"{int(diag.promoted_keyframe.sum())}, end drift {drift:.4f} m, inliers "
+          f"{int(inl.min())}-{int(inl.max())}, poses identical to the plain matcher = "
+          f"{same} -> {'ok' if ok else 'FAIL'}; the JAX package on the same frames on a "
+          f"CPU (its own features): accept {JAX_MONO_48['accept']:.3f}, median step "
+          f"{JAX_MONO_48['median_step_m']:.4f} m, promotions {JAX_MONO_48['promotions']}, "
+          f"end drift {JAX_MONO_48['end_drift_m']:.4f} m, inliers "
+          f"{JAX_MONO_48['inliers'][0]}-{JAX_MONO_48['inliers'][1]}")
+    if not ok:
+        raise AssertionError("the mono path failed tests/test_mono_engine.py's limits or "
+                             "differs from the plain matcher")
+    a, b = args[1][0].contiguous(), args[1][1].contiguous()
+    errs["wgmma"].append(_check_kernel("mono path frames 0, 1", a, b,
+                                       args[2][0].contiguous(), args[2][1].contiguous(),
+                                       True))
+    sub_s["runs"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    engine = MonoVOEngine(cfg, device=dev)
+    timed = tuple(x[:F_PASS] for x in args[:4])
+    passes = [_engine_run(engine, timed[:3], timed[3], Kd)[2] for _ in range(N_PASSES)]
+    mono_ms = float(np.median(passes))
+    print(f"timing [{card}] mono path: engine {mono_ms:.3f} ms/frame (passes of {F_PASS} "
+          f"frames {[round(x, 3) for x in passes]}; the counted run {ms:.3f})")
+    n_steps = 8
+    short = tuple(x[:n_steps + 1] for x in args[:4]) + (Kd,)
+    _profile_lines(card, "mono engine", lambda: engine.run_sequence(*short), n_steps,
+                   mono_ms)
+    # Host syncs: every synchronising call the CUDA sync-debug mode reports from the
+    # port's code (torch's own, such as leaving the mode, are not the engine's).
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.run_sequence(*short)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    by_site: dict = {}
+    for w in caught:
+        if "synchronizing" in str(w.message) and "vo_tpu_torch" in w.filename:
+            site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            by_site[site] = by_site.get(site, 0) + 1
+    n_sync = sum(by_site.values())
+    print(f"host syncs [{card}] mono engine: {n_sync / n_steps:.1f} per frame ({n_sync} "
+          f"over {n_steps} frames) by the Python line that made them: {by_site}")
+    sub_s["timing_profile_syncs"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _homography_check(card, dev)
+    sub_s["homography"] = time.perf_counter() - t0
+    print("phase 11 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
+    return counts["wgmma"]
+
+
+def _homography_check(card, dev="cuda") -> None:
+    """``homography_ransac`` on the card against the CPU (same key and inputs) and the
+    true H: the road plane 1.65 m below the camera, seen before and after a 0.8 m step
+    with a small turn; 2048 correspondences, 30 % of them moved by 20-100 px."""
+    import torch
+
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.estimation.homography import (apply_homography, homography_from_plane,
+                                                    homography_ransac)
+    from vo_tpu_torch.geometry.so3 import so3_exp
+
+    rng = np.random.default_rng(8214)
+    Kc = torch.from_numpy(K)
+    H_true = homography_from_plane(Kc, so3_exp(torch.tensor([0.002, 0.02, 0.001])),
+                                   torch.tensor([0.05, 0.0, -0.8]),
+                                   torch.tensor([0.0, 1.0, 0.0]), 1.65)
+    H_true = H_true / H_true[2, 2]
+    n = 2048
+    src = torch.from_numpy(rng.uniform([100.0, 220.0], [1130.0, 370.0], (n, 2))
+                           .astype(np.float32))
+    dst = apply_homography(H_true, src)
+    out = torch.from_numpy(rng.uniform(size=n) < 0.3)
+    dst[out] += torch.from_numpy(rng.uniform(20, 100, (int(out.sum()), 2)).astype(np.float32))
+    valid = torch.ones(n, dtype=torch.bool)
+    cpu = homography_ransac(prng.key(8214), src, dst, valid)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gpu = homography_ransac(prng.key(8214).to(dev), src.to(dev), dst.to(dev), valid.to(dev))
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t1) * 1e3
+    scale = float(H_true.abs().max())
+    d_cpu = float((gpu.H.cpu() - cpu.H).abs().max()) / scale
+    d_true = float((gpu.H.cpu() - H_true).abs().max()) / scale
+    same = bool(torch.equal(gpu.inliers.cpu(), cpu.inliers))
+    n_inl = int(gpu.n_inliers)
+    caught_out = int((gpu.inliers.cpu() & out).sum())
+    ok = same and d_cpu < 1e-4 and d_true < 1e-4 and caught_out == 0 and bool(gpu.ok)
+    print(f"homography_ransac [{card}]: {n} plane-induced correspondences, "
+          f"{int(out.sum())} outliers; inliers {n_inl} (outliers among them "
+          f"{caught_out}), equal to the CPU's = {same}; H against the CPU's "
+          f"{d_cpu:.2e} and the true H {d_true:.2e} of its scale ({scale:.1f}); one call "
+          f"{call_ms:.1f} ms -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("homography_ransac on the card disagrees with the CPU or "
+                             "misses the true H")
+
+
+def _longrun_phase(card, seq_dir, render_async) -> dict:
+    """Phase 12: ``vo_tpu_torch.runners.longrun.main`` on the long-run world rendered
+    into ``seq_dir`` (git-ignored; ``main()`` removes it). Returns the wgmma launches
+    and the pair verifications."""
+    from vo_tpu_torch.engine import refine
+    from vo_tpu_torch.runners import longrun
+
+    t0 = time.perf_counter()
+    render_async.get(timeout=900)
+    longrun.mark_complete(seq_dir, F_LONG)
+    wait_s = time.perf_counter() - t0
+    out = os.path.join(seq_dir, "longrun.json")
+    _reset_counts()
+    refine.verify_row_pairs.pairs = 0
+    t0 = time.perf_counter()
+    rc = longrun.main(["--dir", seq_dir, "--frames", str(F_LONG), "--out", out])
+    run_s = time.perf_counter() - t0
+    counts, n_verified = _counts(), refine.verify_row_pairs.pairs
+    with open(out) as f:
+        report = json.load(f)
+    print(f"long run report: {json.dumps(report)}")
+    warm = 3 * 16 - 1                         # the runner's warm-up: 3 batches of 16
+    expected = {"wgmma": warm + F_LONG - 1 + n_verified, "simt": 0}
+    ok = (rc == 0 and counts == expected
+          and report["seg_trans_err_pct"] < 1.5
+          and report["seg_rot_err_deg_100m"] < 2.0 and report["accept_rate"] > 0.8
+          and report["checkpoint_written"] and report["refined_finite"]
+          and report["refine_seg_trans_err_pct"] <= 1.05 * report["seg_trans_err_pct"])
+    print(f"long run [{card}] ({F_LONG} frames, {report['distance_m']} m): rc {rc}, "
+          f"launches {counts} (expected {expected}: {warm} warm-up, {F_LONG - 1} run, "
+          f"{n_verified} verifications), {report['fps_io_included']} fps I/O included, "
+          f"peak host RSS {report['peak_host_rss_mb']} MiB, peak device "
+          f"{report.get('peak_device_mb')} MiB, render wait {wait_s:.1f} s, main "
+          f"{run_s:.1f} s -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the long run failed its gate, its checkpoint or its "
+                             "launch count")
+    return {"launches": counts["wgmma"], "verified": n_verified}
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs an NVIDIA GPU")
-    # The renderer is per-frame independent numpy: both workloads render in a pool of
+    long_dir = tempfile.mkdtemp(prefix="smoke_longrun_", dir=_build_dir())
+    # The renderer is per-frame independent numpy: the workloads render in a pool of
     # processes, at a lower priority than this one, while the earlier phases run.
     ctx = multiprocessing.get_context("spawn")
     pool = ctx.Pool(processes=min(8, os.cpu_count() or 1), initializer=os.nice,
                     initargs=(10,))
     try:
-        _smoke(pool)
+        _smoke(pool, long_dir)
     finally:
         pool.terminate()
         pool.join()
+        shutil.rmtree(long_dir, ignore_errors=True)
 
 
-def _smoke(pool) -> None:
+def _smoke(pool, long_dir) -> None:
     import torch
 
     t_all = time.perf_counter()
@@ -1164,6 +1373,7 @@ def _smoke(pool) -> None:
     from vo_tpu_torch.features.extractor import OrbLikeExtractor
     from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
     from vo_tpu_torch.ops import match
+    from vo_tpu_torch.runners import longrun
     from vo_tpu_torch.utils.synthetic import (default_world, depth_valid_fraction,
                                               loop_trajectory, render_rgbd,
                                               slalom_trajectory)
@@ -1180,6 +1390,9 @@ def _smoke(pool) -> None:
     shift = np.eye(4)
     shift[0, 3] = BASELINE_M
     right_rendered = pool.starmap_async(render_rgbd, [(T @ shift, K, H, W) for T in traj])
+    # The long-run world (phase 12), written to disk by the workers, behind all three.
+    long_rendered = pool.starmap_async(longrun.render_frame,
+                                       longrun.render_jobs(long_dir, F_LONG))
 
     # Phase 2: build.
     t0 = time.perf_counter()
@@ -1244,8 +1457,10 @@ def _smoke(pool) -> None:
         raise AssertionError("trajectory gate failed")
 
     t0 = time.perf_counter()
-    _plain_matcher_identical("main path", cfg, (feats.kp, feats.desc, feats.valid), kp3d,
-                             Kd, poses, dev)
+    m = F_TIMED
+    _plain_matcher_identical("main path", cfg, (feats.kp[:m], feats.desc[:m],
+                                                feats.valid[:m]), kp3d[:m], Kd, poses[:m],
+                             dev)
     phase_s["plain_engine_run"] = time.perf_counter() - t0
 
     # Phase 5: the float-mode path (the matchers of float descriptors), counted: the
@@ -1291,13 +1506,15 @@ def _smoke(pool) -> None:
           f"keyframes {int(diag_s.promoted_keyframe.sum())}, mean matches "
           f"{float(np.mean(diag_s.n_matches)):.1f}")
     sift_ok = _gate("SIFT path", poses_s, diag_s.accepted, gt, counts_s["simt"])
+    m = F_TIMED
     poses_sp, diag_sp = VOEngine(VOConfig(**sift_cfg, use_match_kernel=False),
-                                 device=dev).run_sequence(feats_s.kp, feats_s.desc,
-                                                          feats_s.valid, kp3d_s, Kd)
+                                 device=dev).run_sequence(feats_s.kp[:m], feats_s.desc[:m],
+                                                          feats_s.valid[:m], kp3d_s[:m], Kd)
     poses_sp = poses_sp.cpu().numpy()
-    plain_ok = _gate("SIFT path, plain matcher", poses_sp, diag_sp.accepted.cpu().numpy(), gt)
-    dpos = np.abs(poses_sp - poses_s)
-    print(f"SIFT path kernel vs plain matcher: largest per-frame difference "
+    plain_ok = _gate(f"SIFT path, plain matcher, {m} frames", poses_sp,
+                     diag_sp.accepted.cpu().numpy(), gt[:m])
+    dpos = np.abs(poses_sp - poses_s[:m])
+    print(f"SIFT path kernel vs plain matcher, {m} frames: largest per-frame difference "
           f"{float(dpos[:, :3, 3].max()):.3e} m in translation, "
           f"{float(dpos[:, :3, :3].max()):.3e} in a rotation entry; poses identical = "
           f"{bool((dpos == 0).all())}")
@@ -1390,13 +1607,26 @@ def _smoke(pool) -> None:
     entries.append(surf_entry)
     phase_s["timing_kernel_simt64"] = time.perf_counter() - t0
 
+    # Phase 11: mono and homography.
+    t0 = time.perf_counter()
+    mono_launches = _mono_phase(card, feats, kp3d, gt, errs)
+    phase_s["mono_homography"] = time.perf_counter() - t0
+
+    # Phase 12: the long run, cut to F_LONG frames.
+    t0 = time.perf_counter()
+    long = _longrun_phase(card, long_dir, long_rendered)
+    phase_s["long_run"] = time.perf_counter() - t0
+
     by_path = {"main path (run_offline_vo, 160 frames)": launches,
                "refinement (refine_full, loop workload)": refine_launches["refine_full"],
                "refinement (vo_run --refine, loop workload)":
                    refine_launches["vo_run --refine"],
                "stereo path (160 frames)": fl["stereo"],
                "adversarial path (run_offline_vo, 160 frames)": fl["adversarial"],
-               f"oriented BRIEF path (run_offline_vo, {F_TIMED} frames)": fl["oriented"]}
+               f"oriented BRIEF path (run_offline_vo, {F_TIMED} frames)": fl["oriented"],
+               f"mono path (MonoVOEngine, {F_MONO} frames)": mono_launches,
+               f"long run (longrun.main: 48 warm-up + {F_LONG} frames, "
+               f"{long['verified']} pair verifications)": long["launches"]}
     entries[0].update(launches=sum(by_path.values()), launches_by_path=by_path)
     for e in entries:
         e["max_abs_err"] = max(errs["wgmma" if "wgmma" in e["name"] else "simt"])

@@ -7,6 +7,7 @@ over the card's features, and both packages' extractors on the same frames.
     python tests/refine_reference.py engine loop.npz    # on the CPU; both packages
     python tests/refine_reference.py extract loop.npz   # on the CPU; both packages
     python tests/refine_reference.py timing loop.npz OTHER_TREE   # on the GPU
+    python tests/refine_reference.py mono 48            # on the CPU; both packages
 
 ``save`` renders the 240-frame loop workload of ``bench.py:478-576`` (376 x 1232, the
 KITTI intrinsics) in a pool of processes, runs the port's ``run_offline_vo`` with the
@@ -39,6 +40,13 @@ keyframes, the loop edges) and times, on the card, its solve (``bundle_adjust``,
 median of 5 warm calls) and a warm ``refine_full`` with this checkout's port and with
 another checkout's (``OTHER_TREE``, e.g. the parent commit unpacked with ``git
 archive``), in turns: other, this, this, other, each in a process of its own.
+
+``mono`` renders the first N frames of the main path's slalom (``chip_smoke.py``'s
+frames), extracts them with the JAX package's ``OrbLikeExtractor(max_kp=2048)`` and runs
+both packages' ``MonoVOEngine(MonoVOConfig())`` over those features on the CPU: each
+engine's accept rate, median accepted step, keyframe promotions, end drift and inlier
+range (what ``chip_smoke.py`` phase 11 prints for the card), then the first frame whose
+inlier counts differ and the largest pose difference.
 """
 
 from __future__ import annotations
@@ -343,7 +351,60 @@ def _time_tree(path: str, prob_path: str, tree: str) -> None:
           f"warm {walls[1]:.3f} s")
 
 
-MODES = {"save": save, "compare": compare, "engine": engine, "extract": extract}
+def mono(n: str) -> None:
+    _jax_cpu()
+    import jax.numpy as jnp
+    import torch
+
+    from vo_tpu.engine.mono import MonoVOConfig as JMonoConfig
+    from vo_tpu.engine.mono import MonoVOEngine as JMonoEngine
+    from vo_tpu.engine.pipeline import extract_and_backproject
+    from vo_tpu.features import OrbLikeExtractor
+    from vo_tpu_torch.engine.mono import MonoVOConfig, MonoVOEngine
+    from vo_tpu_torch.utils.synthetic import render_rgbd, slalom_trajectory
+
+    n = int(n)
+    gt = slalom_trajectory(160, step=0.8)[:n]
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        frames = pool.starmap(render_rgbd, [(T, K, 376, 1232) for T in gt])
+    imgs, deps = (np.stack([f[i] for f in frames]) for i in (0, 1))
+    ex = OrbLikeExtractor(max_kp=2048)
+    chunks = [extract_and_backproject(ex, jnp.asarray(imgs[s:s + 16]),
+                                      jnp.asarray(deps[s:s + 16]), jnp.asarray(K))
+              for s in range(0, n, 16)]
+    kp, desc, valid = (np.concatenate([np.asarray(getattr(c[0], f)) for c in chunks])
+                       for f in ("kp", "desc", "valid"))
+    kp3d = np.concatenate([np.asarray(c[1]) for c in chunks])
+    runs = {}
+    t0 = time.perf_counter()
+    poses, diag = JMonoEngine(JMonoConfig()).run_sequence(
+        jnp.asarray(kp), jnp.asarray(desc), jnp.asarray(valid), jnp.asarray(kp3d),
+        jnp.asarray(K))
+    runs["JAX"] = (np.asarray(poses), {k: np.asarray(v) for k, v in diag._asdict().items()},
+                   time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    poses, diag = MonoVOEngine(MonoVOConfig(), device="cpu").run_sequence(
+        torch.from_numpy(kp), torch.from_numpy(desc.astype(np.float32)).to(torch.bfloat16),
+        torch.from_numpy(valid), torch.from_numpy(kp3d), torch.from_numpy(K))
+    runs["port"] = (poses.numpy(), {k: v.numpy() for k, v in diag._asdict().items()},
+                    time.perf_counter() - t0)
+    for name, (p, d, secs) in runs.items():
+        acc = d["accepted"]
+        print(f"{name} MonoVOEngine(MonoVOConfig()), {n} frames on the CPU ({secs:.1f} s): "
+              f"accept {acc.mean():.3f}, median accepted step "
+              f"{np.median(d['step_norm'][acc]):.4f} m, keyframe promotions "
+              f"{int(d['promoted_keyframe'].sum())}, end drift "
+              f"{np.linalg.norm(p[-1, :3, 3] - gt[-1, :3, 3]):.4f} m, inliers "
+              f"{int(d['n_inliers'].min())}-{int(d['n_inliers'].max())}")
+    (jp, jd, _), (tp, td, _) = runs["JAX"], runs["port"]
+    split = np.nonzero(jd["n_inliers"] != td["n_inliers"])[0]
+    print(f"first frame with differing inliers: {int(split[0]) + 1 if len(split) else None}; "
+          f"matches equal on every frame: {bool((jd['n_matches'] == td['n_matches']).all())}; "
+          f"largest pose difference {np.abs(jp[:, :3, 3] - tp[:, :3, 3]).max():.4f} m")
+
+
+MODES = {"save": save, "compare": compare, "engine": engine, "extract": extract,
+         "mono": mono}
 
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "timing":

@@ -49,14 +49,13 @@ def _poses(rng, n):
     return T
 
 
-# Every name the JAX package's subpackage __init__ re-exports, less those that wait for
-# later slices (ROADMAP queue 1, item 10: triangulation, Umeyama, essential matrix).
+# Every name the JAX package's subpackage __init__ re-exports.
 EXPORTS = {
     "geometry": ["hat", "vee", "so3_exp", "so3_log", "rodrigues", "inv_rodrigues",
                  "se3_exp", "se3_log", "pose_from_rt", "pose_inverse", "pose_compose",
                  "transform_points", "chain_relative_poses", "identity_pose",
                  "PinholeCamera", "project", "unproject", "normalize_kp",
-                 "depth_to_3d_at", "depth_to_3d"],
+                 "depth_to_3d_at", "depth_to_3d", "triangulate", "umeyama_alignment"],
     "ops": ["rgb_to_gray", "gaussian_blur", "sobel_gradients", "box_filter",
             "maxpool2d_same", "avgpool2d", "bilinear_sample"],
     "matching": ["similarity_matrix", "mutual_nn_match", "ratio_mutual_nn_match",
@@ -64,17 +63,16 @@ EXPORTS = {
     "features": ["harris_response", "shi_tomasi_response", "detect_keypoints",
                  "oriented_brief_descriptors", "brief_offsets", "OrbLikeExtractor",
                  "Features"],
-    "estimation": ["PnPConfig", "PnPResult", "pnp_ransac", "kabsch"],
+    "estimation": ["PnPConfig", "PnPResult", "pnp_ransac", "kabsch", "EssentialConfig",
+                   "EssentialResult", "essential_ransac", "relative_scale"],
 }
-LATER = {"geometry": {"triangulate", "umeyama_alignment"},
-         "estimation": {"EssentialConfig", "EssentialResult", "essential_ransac",
-                        "relative_scale"}}
+LATER: dict = {}
 
 
 @pytest.mark.parametrize("sub", sorted(EXPORTS))
 def test_subpackage_exports(sub):
-    """Each subpackage re-exports what the JAX package's does (but the names of later
-    slices), and importing it builds no kernel."""
+    """Each subpackage re-exports what the JAX package's does, and importing it builds
+    no kernel."""
     from vo_tpu_torch.ops import match
 
     jmod = importlib.import_module(f"vo_tpu.{sub}")

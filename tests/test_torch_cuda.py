@@ -480,3 +480,160 @@ def test_depth_dropout_window_recovers_on_the_card(cuda_device):
     err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
     assert err[-1] < 1.0, f"dropout window corrupted trajectory: {err[-1]:.2f} m"
     assert diag.accepted.mean() > 0.85
+
+
+@pytest.mark.cuda
+def test_randint_on_the_card_equals_the_cpu(cuda_device):
+    from vo_tpu_torch import prng
+
+    for span in (1, 3, 7, 2048, 2**20 + 3):
+        keys = prng.fold_in(prng.key(8214), torch.arange(4))
+        got = prng.randint(keys.to(cuda_device), (256, 4), -3, span - 3)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      prng.randint(keys, (256, 4), -3, span - 3).numpy())
+
+
+@pytest.mark.cuda
+def test_homography_ransac_on_the_card_matches_the_cpu(cuda_device):
+    """A plane-induced correspondence set with 30 % outliers: the same key and inputs
+    give the CPU's inliers on the card, and H within 1e-4 of its scale of the CPU's
+    (the card's eigh is another algorithm than LAPACK's) and of the truth."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.estimation.homography import (apply_homography, homography_from_plane,
+                                                    homography_ransac)
+    from vo_tpu_torch.geometry.so3 import so3_exp
+
+    rng = np.random.default_rng(75)
+    K = torch.tensor([[300.0, 0.0, 320.0], [0.0, 300.0, 240.0], [0.0, 0.0, 1.0]])
+    H = homography_from_plane(K, so3_exp(torch.tensor([0.02, -0.03, 0.01])),
+                              torch.tensor([0.2, 0.0, 0.4]), torch.tensor([0.0, 1.0, 0.0]), 1.5)
+    H = H / H[2, 2]
+    src = torch.from_numpy(rng.uniform([100, 260], [540, 470], (400, 2)).astype(np.float32))
+    dst = apply_homography(H, src)
+    out = torch.from_numpy(rng.uniform(size=400) < 0.3)
+    dst[out] += torch.from_numpy(rng.uniform(20, 100, (int(out.sum()), 2)).astype(np.float32))
+    valid = torch.ones(400, dtype=torch.bool)
+    cpu = homography_ransac(prng.key(5), src, dst, valid)
+    gpu = homography_ransac(prng.key(5).to(cuda_device), src.to(cuda_device),
+                            dst.to(cuda_device), valid.to(cuda_device))
+    assert gpu.H.device.type == "cuda"
+    np.testing.assert_array_equal(gpu.inliers.cpu().numpy(), cpu.inliers.numpy())
+    scale = float(H.abs().max())
+    np.testing.assert_allclose(gpu.H.cpu().numpy(), cpu.H.numpy(), rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(gpu.H.cpu().numpy(), H.numpy(), rtol=0, atol=1e-4 * scale)
+    assert not (gpu.inliers.cpu() & out).any() and gpu.inliers.cpu()[~out].float().mean() > 0.95
+
+
+@pytest.mark.cuda
+def test_essential_ransac_on_the_card_matches_the_cpu(cuda_device):
+    """A clean two-view set: the card's inliers and cheirality choice are the CPU's;
+    the pose agrees within the polish's fp32 noise floor (tests/test_torch_mono.py)."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.estimation.essential import essential_ransac
+    from vo_tpu_torch.geometry.so3 import so3_exp
+
+    rng = np.random.default_rng(76)
+    K = np.array([[700.0, 0.0, 320.0], [0.0, 700.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
+    X = np.stack([rng.uniform(-10, 10, 400), rng.uniform(-3, 3, 400),
+                  rng.uniform(5, 40, 400)], -1).astype(np.float32)
+    R = so3_exp(torch.tensor([0.01, 0.05, 0.0])).numpy()
+    X2 = X @ R.T + np.array([1.2, 0.1, 0.6], np.float32)
+    uv1 = X[:, :2] / X[:, 2:] * 700.0 + K[:2, 2] + rng.normal(0, 0.3, (400, 2))
+    uv2 = X2[:, :2] / X2[:, 2:] * 700.0 + K[:2, 2] + rng.normal(0, 0.3, (400, 2))
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (uv1, uv2)]
+    valid = torch.ones(400, dtype=torch.bool)
+    cpu = essential_ransac(prng.key(0), *args, valid, torch.from_numpy(K))
+    gpu = essential_ransac(prng.key(0).to(cuda_device), *(a.to(cuda_device) for a in args),
+                           valid.to(cuda_device), torch.from_numpy(K).to(cuda_device))
+    np.testing.assert_array_equal(gpu.inliers.cpu().numpy(), cpu.inliers.numpy())
+    Tg, Tc = gpu.pose.cpu().numpy().astype(np.float64), cpu.pose.numpy().astype(np.float64)
+    np.testing.assert_allclose(Tg[:3, 3], Tc[:3, 3], atol=1e-3)
+    cos = (np.trace(Tg[:3, :3].T @ Tc[:3, :3]) - 1.0) / 2.0
+    assert np.arccos(np.clip(cos, -1.0, 1.0)) < 0.02
+
+
+@pytest.mark.cuda
+def test_mono_engine_on_the_card(cuda_device):
+    """tests/test_mono_engine.py's drive and config on the card: one wgmma launch per
+    tracked frame, the plain matcher's poses exactly, and that test's limits."""
+    import dataclasses
+
+    from vo_tpu_torch.engine.mono import MonoVOConfig, MonoVOEngine
+    from vo_tpu_torch.engine.pipeline import extract_and_backproject
+    from vo_tpu_torch.estimation.essential import EssentialConfig
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, gt = render_sequence(10, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+    Kd = torch.from_numpy(K_SMALL).to(cuda_device)
+    feats, kp3d = extract_and_backproject(OrbLikeExtractor(max_kp=512),
+                                          torch.from_numpy(imgs).to(cuda_device),
+                                          torch.from_numpy(deps).to(cuda_device), Kd)
+    cfg = MonoVOConfig(matcher="ratio_binary", kf_min_matches=60, kf_min_inliers=30,
+                       essential=EssentialConfig(min_inliers=15, n_hypotheses=64,
+                                                 polish_starts=4))
+    args = (feats.kp, feats.desc, feats.valid, kp3d, Kd)
+    before = (match.launch_wgmma.launches, match.launch_simt.launches)
+    poses, diag = MonoVOEngine(cfg, device=cuda_device).run_sequence(*args)
+    torch.cuda.synchronize()
+    assert (match.launch_wgmma.launches - before[0], match.launch_simt.launches) == (9, before[1])
+    plain, _ = MonoVOEngine(dataclasses.replace(cfg, use_match_kernel=False),
+                            device=cuda_device).run_sequence(*args)
+    assert torch.equal(plain, poses)
+    poses, accept = poses.cpu().numpy(), diag.accepted.cpu().numpy()
+    assert np.isfinite(poses).all() and accept.mean() > 0.7
+    assert abs(np.median(diag.step_norm.cpu().numpy()[accept]) - 0.8) < 0.2
+    assert np.linalg.norm(poses[-1, :3, 3] - gt[-1, :3, 3]) < 1.0
+
+
+def _syncs_by_file(fn):
+    """Run ``fn`` under the CUDA sync-debug mode -> {file of the port: synchronising
+    calls made from it} (torch's own calls, such as leaving the mode, are not the
+    engine's)."""
+    import os
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out: dict = {}
+    for w in caught:
+        if "synchronizing" in str(w.message) and "vo_tpu_torch" in w.filename:
+            name = os.path.basename(w.filename)
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+@pytest.mark.cuda
+def test_engine_steps_make_no_host_sync_of_their_own(cuda_device):
+    """The RGB-D engine's steps make no host sync; the mono engine's only the SVD's
+    status check in ``triangulate`` (ROADMAP queue 2 item 8)."""
+    from vo_tpu_torch.engine.mono import MonoVOConfig, MonoVOEngine
+    from vo_tpu_torch.engine.pipeline import extract_and_backproject
+    from vo_tpu_torch.engine.vo import VOConfig, VOEngine
+    from vo_tpu_torch.estimation.essential import EssentialConfig
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, _ = render_sequence(6, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+    Kd = torch.from_numpy(K_SMALL).to(cuda_device)
+    feats, kp3d = extract_and_backproject(OrbLikeExtractor(max_kp=512),
+                                          torch.from_numpy(imgs).to(cuda_device),
+                                          torch.from_numpy(deps).to(cuda_device), Kd)
+    args = (feats.kp, feats.desc, feats.valid, kp3d, Kd)
+    rgbd = VOEngine(VOConfig(pnp=PnPConfig(n_hypotheses=256)), device=cuda_device)
+    rgbd.run_sequence(*args)                                   # warm-up
+    assert _syncs_by_file(lambda: rgbd.run_sequence(*args)) == {}
+    mono = MonoVOEngine(MonoVOConfig(kf_min_matches=60, kf_min_inliers=30,
+                                     essential=EssentialConfig(n_hypotheses=64)),
+                        device=cuda_device)
+    mono.run_sequence(*args)
+    syncs = _syncs_by_file(lambda: mono.run_sequence(*args))
+    assert set(syncs) == {"triangulation.py"} and syncs["triangulation.py"] <= 2 * 5, syncs

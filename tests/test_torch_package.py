@@ -141,6 +141,48 @@ def test_refinement_and_solvers_default_to_gpu(no_cuda):
     assert out.device.type == "cpu" and torch.isfinite(out).all()
 
 
+def test_mono_slice_defaults_to_gpu(no_cuda, tmp_path):
+    """The mono engine, the essential-matrix and homography RANSACs, triangulation and
+    the long-run runner raise without a GPU, and run when asked for the CPU (or given
+    CPU tensors)."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.engine.mono import MonoVOEngine
+    from vo_tpu_torch.estimation.essential import EssentialConfig, essential_ransac
+    from vo_tpu_torch.estimation.homography import homography_ransac
+    from vo_tpu_torch.geometry.triangulation import triangulate
+    from vo_tpu_torch.runners import longrun
+
+    rng = np.random.default_rng(65)
+    kp1 = rng.uniform(0, 100, (40, 2)).astype(np.float32)
+    kp2 = kp1 + np.float32(3.0)
+    valid, K = np.ones(40, bool), np.array([[100.0, 0, 50], [0, 100, 50], [0, 0, 1]],
+                                          np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = 0.5
+    key = prng.key(0)
+    ecfg = EssentialConfig(n_hypotheses=8, polish_starts=2, polish_iters=2)
+    calls = [lambda **kw: essential_ransac(key, kp1, kp2, valid, K, ecfg, **kw),
+             lambda **kw: homography_ransac(key, kp1, kp2, valid, **kw),
+             lambda **kw: triangulate(kp1, kp2, np.eye(4, dtype=np.float32), T, K, **kw),
+             lambda **kw: MonoVOEngine(**kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        longrun.main(["--dir", str(tmp_path)])
+    assert longrun.main(["--dir", str(tmp_path)], device="cpu") == 1   # no frames there
+    # CPU tensors run where they lie; the engine runs where its features lie.
+    res = essential_ransac(key, torch.from_numpy(kp1), torch.from_numpy(kp2),
+                           torch.from_numpy(valid), torch.from_numpy(K), ecfg)
+    assert res.pose.device.type == "cpu"
+    F = 3
+    poses, diag = MonoVOEngine(device="cpu").run_sequence(
+        torch.from_numpy(np.stack([kp1] * F)), torch.ones(F, 40, 256, dtype=torch.bfloat16),
+        torch.ones(F, 40, dtype=torch.bool), torch.ones(F, 40, 3), torch.from_numpy(K))
+    assert poses.shape == (F, 4, 4) and diag.accepted.shape == (F - 1,)
+
+
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
     imgs = np.random.default_rng(61).uniform(0, 255, (2, 64, 64)).astype(np.float32)
     feats = OrbLikeExtractor(max_kp=16, border=14)(imgs, device="cpu")

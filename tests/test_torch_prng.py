@@ -56,3 +56,33 @@ def test_batched_keys_draw_like_single_keys():
     for i in range(4):
         np.testing.assert_array_equal(batched[i].numpy(),
                                       prng.uniform(keys[i], (10, 3)).numpy())
+
+
+@pytest.mark.parametrize("span", [1, 3, 4, 7, 2048, 2**20 + 3])
+@pytest.mark.parametrize("shape", [(256, 4), (7,), (3, 5, 2)])
+def test_randint(span, shape):
+    """``jax.random.randint`` bit for bit (int32), spans that are and are not powers
+    of 2, with and without an offset."""
+    for seed, fid, lo in ((8214, 1, 0), (8214, 158, -5), (11, 0, 100)):
+        jk = jax.random.fold_in(jax.random.key(seed), fid)
+        tk = prng.fold_in(prng.key(seed), fid)
+        ref = np.asarray(jax.random.randint(jk, shape, lo, lo + span))
+        got = prng.randint(tk, shape, lo, lo + span)
+        assert got.dtype == torch.int32 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("lo,hi", [(7, 3), (5, 5), (-2**31, 2**31 - 1), (0, 2**31 - 1)])
+def test_randint_edges(lo, hi):
+    """maxval <= minval gives minval; the full int32 range wraps as jax's uint32 span."""
+    jk, tk = jax.random.key(3), prng.key(3)
+    np.testing.assert_array_equal(prng.randint(tk, (64,), lo, hi).numpy(),
+                                  np.asarray(jax.random.randint(jk, (64,), lo, hi)))
+
+
+def test_randint_array_bounds():
+    jk, tk = jax.random.key(1), prng.key(1)
+    lo, hi = np.array([0, 5, 9]), np.array([3, 2**20, 10])
+    np.testing.assert_array_equal(
+        prng.randint(tk, (4, 3), torch.from_numpy(lo), torch.from_numpy(hi)).numpy(),
+        np.asarray(jax.random.randint(jk, (4, 3), lo, hi)))

@@ -39,3 +39,12 @@ def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
         a = np.ascontiguousarray(x)
         x = torch.from_numpy(a if a.flags.writeable else a.copy())
     return x.to(device=device, dtype=dtype)
+
+
+def device_for(x, device: str | torch.device | None = None) -> torch.device:
+    """``device`` when given, else the device of ``x`` when it is a tensor, else cuda
+    (through ``resolve_device``): functions that take arrays run where their tensors
+    already are."""
+    if device is None and isinstance(x, torch.Tensor):
+        device = x.device
+    return resolve_device(device)

@@ -43,6 +43,12 @@ class PnPResult(NamedTuple):
     ok: torch.Tensor         # () bool
 
 
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor without reading it back to the host (indexing
+    with a 0-d CUDA tensor reads it, a host sync)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def _sample_indices(key: torch.Tensor, valid: torch.Tensor, n_hyp: int, m: int) -> torch.Tensor:
     """(n_hyp, m) indices drawn uniformly from the valid entries, with replacement."""
     order = torch.sort((~valid).to(torch.uint8), stable=True).indices  # valid first
@@ -180,7 +186,7 @@ def pnp_ransac(
     inl = (res < cfg.reproj_threshold) & (z > cfg.min_depth) & valid[None, :]
     counts = inl.sum(dim=-1)
     best = torch.argmax(counts)
-    best_pose, best_count, best_inl = hyp_poses[best], counts[best], inl[best]
+    best_pose, best_count, best_inl = (_pick(x, best) for x in (hyp_poses, counts, inl))
 
     if cfg.anneal:
         # The JAX package skips the identity-seeded annealed candidate with a lax.cond

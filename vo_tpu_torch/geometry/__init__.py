@@ -1,8 +1,5 @@
-"""Batched geometry: SO(3) / SE(3) Lie ops and the pinhole camera.
-
-Mirrors ``vo_tpu/geometry/__init__.py``, but for the names that wait for the mono
-slice (``triangulate``, ``umeyama_alignment``: ROADMAP queue 1, item 10).
-"""
+"""Batched geometry: SO(3) / SE(3) Lie ops, the pinhole camera, triangulation and
+Umeyama alignment. Mirrors ``vo_tpu/geometry/__init__.py``."""
 
 from vo_tpu_torch.geometry.so3 import (
     hat,
@@ -30,3 +27,5 @@ from vo_tpu_torch.geometry.camera import (
     depth_to_3d_at,
     depth_to_3d,
 )
+from vo_tpu_torch.geometry.triangulation import triangulate
+from vo_tpu_torch.geometry.umeyama import umeyama_alignment

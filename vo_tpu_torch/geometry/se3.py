@@ -19,7 +19,7 @@ def pose_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t.reshape(batch + (3,))
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)      # no ``= 1.0``: that copies the number up, a host sync
     return T
 
 

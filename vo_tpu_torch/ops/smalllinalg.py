@@ -15,9 +15,10 @@ _EPS = 1e-12
 
 
 def _unit(i: int, like: torch.Tensor) -> torch.Tensor:
-    e = torch.zeros_like(like)
-    e[..., i] = 1.0
-    return e
+    """The i-th unit vector, broadcast to ``like``'s shape. Built on the device: writing
+    a Python number into a CUDA tensor copies it up from the host, a sync."""
+    eye = torch.eye(like.shape[-1], dtype=like.dtype, device=like.device)
+    return eye[i].expand(like.shape)
 
 
 def cholesky_small(A: torch.Tensor, n: int) -> torch.Tensor:

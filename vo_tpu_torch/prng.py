@@ -1,4 +1,4 @@
-"""Threefry-2x32 keys and uniform draws, bit-compatible with ``jax.random``.
+"""Threefry-2x32 keys, uniform and integer draws, bit-compatible with ``jax.random``.
 
 The engine draws every RANSAC sample from ``fold_in(key(seed), frame_id)``, then
 ``split`` and ``uniform`` (vo_tpu/engine/vo.py, vo_tpu/estimation/pnp.py). These are
@@ -39,8 +39,9 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x0: torch.Tensor,
 
 
 def key(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
-    """``jax.random.key(seed)`` for a seed in the int32 or uint32 range: [0, seed]."""
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    """``jax.random.key(seed)`` for a seed in the int32 or uint32 range: [0, seed],
+    made on the device (a tensor from a list would be copied up, a host sync)."""
+    return torch.arange(2, dtype=torch.int64, device=device) * (seed & _M32)
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
@@ -73,3 +74,50 @@ def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     bits = ((b1 ^ b2) >> 9) | 0x3F800000          # below 2**31: exact in int32
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp(floats, min=0.0).reshape(k.shape[:-1] + tuple(shape))
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _rem(a: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
+    """uint32 remainder; ``a % 0`` is ``a``, as XLA defines it for unsigned types."""
+    return torch.where(span == 0, a, a % torch.where(span == 0, 1, span))
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """uint32 product with wrap-around, for uint32 values held in int64."""
+    return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & _M32
+
+
+def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): (...,) + shape.
+
+    jax's algorithm: 32 random bits from each half of ``split(key)`` reduced into the
+    span with ``(hi % span) * (2**32 % span) + lo % span``, all in uint32 arithmetic
+    (held here in int64 and wrapped with ``_M32``). ``minval`` and ``maxval`` are
+    clipped to the int32 range; ``maxval <= minval`` gives ``minval``.
+    """
+    minval, maxval = (v.to(k.device, torch.int64) if isinstance(v, torch.Tensor)
+                      else torch.full((), v, dtype=torch.int64, device=k.device)
+                      for v in (minval, maxval))
+    out_of_range = maxval > _I32_MAX
+    minval = minval.clamp(_I32_MIN, _I32_MAX)
+    maxval = maxval.clamp(_I32_MIN, _I32_MAX)
+    n = math.prod(shape)
+    hi, lo = _counters(n, k.device)
+    ks = split(k)
+    bits = []
+    for i in range(2):
+        b1, b2 = threefry2x32(ks[..., i, 0, None], ks[..., i, 1, None], hi, lo)
+        bits.append((b1 ^ b2).reshape(k.shape[:-1] + tuple(shape)))
+    higher, lower = bits
+
+    span = (maxval - minval) & _M32
+    span = torch.where(maxval <= minval, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (maxval > minval), (span + 1) & _M32, span)
+    multiplier = _rem(torch.full_like(span, 2 ** 16), span)
+    multiplier = _rem(_mul32(multiplier, multiplier), span)
+    offset = _mul32(_rem(higher, span), multiplier)
+    offset = _rem((offset + _rem(lower, span)) & _M32, span)
+    out = (minval + offset - _I32_MIN) & _M32                 # int32 wrap-around
+    return (out + _I32_MIN).to(torch.int32)
