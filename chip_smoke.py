@@ -75,7 +75,18 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
     (behind the right eye) into a git-ignored directory, then
     ``vo_tpu_torch.runners.longrun.main`` on it: the trajectory gate, the checkpoint,
     finite refined poses, refinement no worse than 1.05x the odometry, and one wgmma
-    launch per tracked frame of the warm-up and the run and per pair verification.
+    launch per tracked frame of the warm-up and the run and per pair verification;
+13. R2D2: the Fast network at full width with seeded weights (the published ones are
+    not in the repository; thresholds 0, since seeded heads clear the published ones
+    rarely) on the first 48 slalom frames in batches of 16: extraction timed and
+    profiled with a bf16 and an fp32 trunk, with its peak device memory; the network
+    on the card against the CPU on one frame; two extractions bit-identical; the engine
+    with ``ratio_mutual_nn`` at 0.9 (``bench.py:307-309``): 47 SIMT launches and none
+    of wgmma, finite poses, the plain matcher's poses on 16 frames (the first
+    difference printed), the kernel against its plain version on frames 0 and 1; a
+    checkpoint in the published layout read back to the same bits; the multiscale
+    pyramid on 4 frames, the extract CLI on 4 PNGs, and ``Quad_L2Net_ConfCFS`` on 4
+    frames (time and peak memory).
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
 line before it lists each kernel and shape with its launches, error, times and bound.
@@ -1334,6 +1345,213 @@ def _longrun_phase(card, seq_dir, render_async) -> dict:
     return {"launches": counts["wgmma"], "verified": n_verified}
 
 
+def _peak_mib(fn) -> tuple[float, float]:
+    """(device memory allocated before ``fn()``, its peak during it), in MiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return base / 2**20, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
+    """Phase 13: the R2D2 front-end at full width (``Fast_Quad_L2Net_ConfCFS``, seeded
+    weights: the published ones are not in the repository) on the first ``F_TIMED``
+    slalom frames, thresholds 0. Returns the SIMT launches of its engine run."""
+    import dataclasses
+
+    import torch
+
+    from vo_tpu_torch.engine.pipeline import extract_and_backproject
+    from vo_tpu_torch.engine.vo import VOConfig, VOEngine
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.evalkit import KittiOdomEvaluator
+    from vo_tpu_torch.features.extractor import Features
+    from vo_tpu_torch.models import port_weights
+    from vo_tpu_torch.models.multiscale import (MultiscaleConfig, extract_multiscale,
+                                                pyramid_scales)
+    from vo_tpu_torch.models.patchnet import (FAST_QUAD_L2NET_CONFCFS, QUAD_L2NET_CONFCFS,
+                                              PatchNet, apply_patchnet,
+                                              init_patchnet_params, params_to)
+    from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor, normalize_images
+    from vo_tpu_torch.runners import extract
+
+    sub_s = {}
+    m, B = F_TIMED, EXTRACT_BATCH
+    Kd = torch.from_numpy(K).to(dev)
+    imgs_d, deps_d = torch.from_numpy(imgs[:m]).to(dev), torch.from_numpy(deps[:m]).to(dev)
+    spec = FAST_QUAD_L2NET_CONFCFS
+    params = init_patchnet_params(torch.Generator().manual_seed(8214), spec)
+    zero = dict(rel_thr=0.0, rep_thr=0.0, score_thr=0.0)
+
+    # Seeded heads clear the published thresholds (0.7 / 0.7, score > 0.85) rarely.
+    t0 = time.perf_counter()
+    published = R2D2Extractor.from_params(spec, params, max_kp=2048)(imgs_d[:B], device=dev)
+    n_pub = published.valid.sum(1).cpu().numpy()
+    print(f"R2D2 [{card}] published thresholds, seeded weights: {int(n_pub.sum())} "
+          f"keypoints over {B} frames (per frame {int(n_pub.min())}-{int(n_pub.max())}); "
+          f"thresholds 0 from here, so that the 2048 budget fills")
+
+    # Extraction in batches of 16 (bench.py:312), bf16 trunk (the default) and fp32.
+    extractors = {dt: R2D2Extractor.from_params(spec, params, max_kp=2048,
+                                                compute_dtype=dt, **zero)
+                  for dt in ("bfloat16", "float32")}
+
+    def extract_all(ex, n=m):
+        chunks = [extract_and_backproject(ex, imgs_d[s:s + B], deps_d[s:s + B], Kd)
+                  for s in range(0, n, B)]
+        return (Features(*(torch.cat([c[0][i] for c in chunks]) for i in range(4))),
+                torch.cat([c[1] for c in chunks]))
+
+    feats, kp3d = extract_all(extractors["bfloat16"])
+    n_valid = feats.valid.sum(1).cpu().numpy()
+    if feats.desc.shape[1:] != (2048, 128) or feats.desc.dtype != torch.bfloat16 \
+            or int(n_valid.min()) != 2048:
+        raise AssertionError(f"R2D2 features {tuple(feats.desc.shape)} {feats.desc.dtype}, "
+                             f"valid {int(n_valid.min())}-{int(n_valid.max())}")
+    for dt, ex in extractors.items():
+        ms, passes = _extract_ms(lambda: extract_all(ex), m)
+        base, peak = _peak_mib(lambda: extract_and_backproject(ex, imgs_d[:B], deps_d[:B], Kd))
+        print(f"timing [{card}] R2D2 extract ({spec.name}, {dt} trunk, {H}x{W}, batches "
+              f"of {B}): {ms:.3f} ms/frame (passes {[round(x, 3) for x in passes]}); peak "
+              f"device memory of one batch {peak:.1f} MiB ({peak - base:.1f} MiB above the "
+              f"{base:.1f} MiB held before it)")
+        _profile_lines(card, f"R2D2 extract ({dt} trunk)", lambda: extract_and_backproject(
+            ex, imgs_d[:B], deps_d[:B], Kd), B, ms)
+    sub_s["extract"] = time.perf_counter() - t0
+
+    # The network on the card against the CPU, one frame, same parameters; then two
+    # extractions on the card give the same bits.
+    t0 = time.perf_counter()
+    x = normalize_images(imgs[:1], torch.device("cpu"))
+    gparams = params_to(params, dev)
+    diffs = {}
+    for dt in ("float32", "bfloat16"):
+        cpu = apply_patchnet(params, spec, x, dt)
+        gpu = apply_patchnet(gparams, spec, x.to(dev), dt)
+        diffs[dt] = {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in cpu}
+    again = extract_all(extractors["bfloat16"], B)[0]
+    repeat = all(torch.equal(a, b[:B]) for a, b in zip(again, feats))
+    ok = repeat and max(diffs["float32"].values()) < 1e-3 \
+        and max(diffs["bfloat16"].values()) < 0.1
+    print(f"R2D2 [{card}] network on the card vs the CPU, one frame: largest difference "
+          f"fp32 (TF32 off) {diffs['float32']}, bf16 {diffs['bfloat16']}; two extractions "
+          f"of {B} frames bit-identical = {repeat} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("R2D2 on the card disagrees with the CPU or does not repeat")
+    sub_s["cpu_and_repeat"] = time.perf_counter() - t0
+
+    # The engine over those features (bench.py:307-309), counted.
+    t0 = time.perf_counter()
+    cfg = VOConfig(matcher="ratio_mutual_nn", ratio=0.9, pnp=PnPConfig(n_hypotheses=512))
+    feats3 = (feats.kp, feats.desc, feats.valid)
+    _reset_counts()
+    poses, diag, engine_ms = _engine_run(VOEngine(cfg, device=dev), feats3, kp3d, Kd)
+    counts = _counts()
+    poses_np = poses.cpu().numpy()
+    if counts != {"wgmma": 0, "simt": m - 1} or not np.isfinite(poses_np).all():
+        raise AssertionError(f"R2D2 path launches {counts} (expected {m - 1} simt, 0 "
+                             f"wgmma), poses finite {np.isfinite(poses_np).all()}")
+    res = KittiOdomEvaluator().evaluate(gt[:m], poses_np)
+    accept = diag.accepted.cpu().numpy()
+    drift = float(np.linalg.norm(poses_np[-1, :3, 3] - gt[m - 1, :3, 3]))
+    print(f"R2D2 path ({m} frames, ratio_mutual_nn 0.9, 512 hypotheses; seeded weights, "
+          f"not gated): simt launches {counts['simt']}, accept {accept.mean():.3f}, "
+          f"seg_trans {res.seg_trans_err_pct:.4f} %, seg_rot "
+          f"{res.seg_rot_err_deg_per_100m:.4f} deg/100m, end drift {drift:.3f} m, matches "
+          f"{int(diag.n_matches.min())}-{int(diag.n_matches.max())}, inliers "
+          f"{int(diag.n_inliers.min())}-{int(diag.n_inliers.max())}; engine "
+          f"{engine_ms:.3f} ms/frame")
+    n = EXTRACT_BATCH
+    before = _counts()
+    plain, _ = VOEngine(dataclasses.replace(cfg, use_match_kernel=False),
+                        device=dev).run_sequence(*(f[:n] for f in feats3), kp3d[:n], Kd)
+    if _counts() != before:
+        raise AssertionError("the plain-matcher engine launched a match kernel")
+    dpos = (plain - poses[:n]).abs().amax(dim=(1, 2)).cpu().numpy()
+    first = int(np.argmax(dpos > 0)) if (dpos > 0).any() else None
+    print(f"R2D2 path kernel vs plain matcher engine runs ({n} frames): poses identical = "
+          f"{first is None}" + ("" if first is None else
+                                f"; first differing frame {first}, by {dpos[first]:.3e}, "
+                                f"largest {dpos.max():.3e}"))
+    errs["simt"].append(_check_kernel("R2D2 path frames 0, 1", feats.desc[0].float(),
+                                      feats.desc[1].float(), feats.valid[0].contiguous(),
+                                      feats.valid[1].contiguous(), False))
+    sub_s["engine"] = time.perf_counter() - t0
+
+    # A checkpoint in the published layout, read back: the same bits.
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_r2d2_", dir=_build_dir())
+    models_dir = port_weights.MODELS_DIR
+    try:
+        state = {f"module.{k}": v for k, v in PatchNet(spec, params).state_dict().items()}
+        torch.save({"net": "Fast_Quad_L2Net_ConfCFS()", "state_dict": state},
+                   os.path.join(tmp, "seeded.pt"))
+        spec2, params2 = port_weights.load_torch_checkpoint(os.path.join(tmp, "seeded.pt"))
+        loaded = R2D2Extractor.from_params(spec2, params2, max_kp=2048, **zero)(
+            imgs_d[:B], device=dev)
+        same = spec2 == spec and all(torch.equal(a, b[:B]) for a, b in zip(loaded, feats))
+        print(f"R2D2 checkpoint ({len(state)} tensors, reference layout) read back: "
+              f"features bit-identical = {same}")
+        if not same:
+            raise AssertionError("the checkpoint read back gives other features")
+
+        # The other entry points: the multiscale pyramid, the extract CLI, Quad_L2Net.
+        mcfg = MultiscaleConfig(rel_thr=0.0, rep_thr=0.0)
+        scales = pyramid_scales(H, W, mcfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        msf = extract_multiscale(params, spec, imgs_d[:4], mcfg, device=dev)
+        torch.cuda.synchronize()
+        t_ms = time.perf_counter() - t1
+        cols = set(np.unique(msf.kp[..., 2][msf.valid].cpu().numpy()).tolist())
+        levels = [s for s in scales if float(np.float32(32.0 / s)) in cols]
+        ok = (msf.kp.shape == (4, 2048, 3) and bool(msf.valid.all())
+              and bool(torch.isfinite(msf.desc).all()) and len(levels) == len(cols))
+        print(f"R2D2 multiscale [{card}] (MultiscaleConfig(), thresholds 0): scales "
+              f"{[round(s, 4) for s in scales]}, 4 frames in {t_ms * 1e3:.1f} ms, "
+              f"keypoints from the levels {[round(s, 4) for s in levels]} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("extract_multiscale on the card failed")
+
+        from PIL import Image
+
+        paths = []
+        for i in range(4):
+            paths.append(os.path.join(tmp, f"{i:06d}.png"))
+            Image.fromarray(np.clip(imgs[i], 0, 255).astype(np.uint8)).save(paths[-1])
+        port_weights.MODELS_DIR = tmp
+        t1 = time.perf_counter()
+        rc = extract.main(["--model", "seeded", "--images", *paths, "--reliability-thr",
+                           "0", "--repeatability-thr", "0", "--batch", "4"])
+        t_cli = time.perf_counter() - t1
+        n_kp = [np.load(p + ".r2d2")["keypoints"].shape[0] for p in paths]
+        print(f"R2D2 extract CLI [{card}]: rc {rc}, 4 PNGs in {t_cli:.1f} s, keypoints "
+              f"{n_kp}")
+        if rc != 0 or min(n_kp) == 0:
+            raise AssertionError("the extract CLI failed on the card")
+    finally:
+        port_weights.MODELS_DIR = models_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    quad = R2D2Extractor.from_params(
+        QUAD_L2NET_CONFCFS, init_patchnet_params(torch.Generator().manual_seed(8215),
+                                                 QUAD_L2NET_CONFCFS), max_kp=2048, **zero)
+    q_ms, q_passes = _extract_ms(lambda: quad(imgs_d[:4], device=dev), 4)
+    base, peak = _peak_mib(lambda: quad(imgs_d[:4], device=dev))
+    print(f"timing [{card}] R2D2 extract ({QUAD_L2NET_CONFCFS.name}, bf16 trunk, full "
+          f"resolution, batch of 4): {q_ms:.3f} ms/frame (passes "
+          f"{[round(x, 3) for x in q_passes]}); peak device memory {peak:.1f} MiB "
+          f"({peak - base:.1f} MiB above the {base:.1f} MiB held before it)")
+    sub_s["checkpoint_multiscale_cli_quad"] = time.perf_counter() - t0
+    print("phase 13 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
+    return {"launches": counts["simt"]}
+
+
 def main() -> None:
     import torch
 
@@ -1616,6 +1834,15 @@ def _smoke(pool, long_dir) -> None:
     t0 = time.perf_counter()
     long = _longrun_phase(card, long_dir, long_rendered)
     phase_s["long_run"] = time.perf_counter() - t0
+
+    # Phase 13: the R2D2 front-end.
+    t0 = time.perf_counter()
+    r2d2 = _r2d2_phase(card, imgs, deps, gt, errs)
+    phase_s["r2d2"] = time.perf_counter() - t0
+    entries[1]["launches"] += r2d2["launches"]
+    entries[1]["launches_by_path"] = {
+        "SIFT path (run_offline_vo, 160 frames)": counts_s["simt"],
+        f"R2D2 path (VOEngine on R2D2 features, {F_TIMED} frames)": r2d2["launches"]}
 
     by_path = {"main path (run_offline_vo, 160 frames)": launches,
                "refinement (refine_full, loop workload)": refine_launches["refine_full"],

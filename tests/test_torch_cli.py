@@ -1,7 +1,7 @@
 """The port's entry points as users launch them: ``vo_run`` on a directory of frames
 (against the JAX package's ``vo_run`` on the same directory and YAML), resuming
-through the CLI, ``--refine`` with ``--save-odometry``, the options not ported yet, and
-the per-frame ``OnlineVO``.
+through the CLI, ``--refine`` with ``--save-odometry``, options whose prerequisites are
+missing, and the per-frame ``OnlineVO``.
 
 Configuration as tests/test_torch_engine.py (10 rendered frames, 240 x 320, 512
 keypoints, 256 hypotheses), streamed in batches of 4. Tolerances: against JAX,
@@ -19,6 +19,7 @@ turning frames as they are rendered (fp32).
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -207,16 +208,25 @@ def test_cli_refine_and_save_odometry(seq, port_cli, retain, capsys):
 
 
 @pytest.mark.parametrize("case", ["visualize", "r2d2"])
-def test_unported_options_raise_before_reading(tmp_path, case):
-    """Each raises NotImplementedError naming its ROADMAP item, before any frame is
-    read (the image path does not even exist), with ``--refine`` or without.
-    (``feature_extractor: surf`` is ported: tests/test_torch_surf.py.)"""
-    extra = {"visualize": "visualize_results: true\n",
-             "r2d2": "feature_extractor: r2d2\n"}
+def test_unported_options_raise_before_reading(tmp_path, monkeypatch, case):
+    """An option whose prerequisite is missing raises before any frame is read (the
+    image path does not even exist), with ``--refine`` or without:
+    ``visualize_results: true`` without matplotlib, and ``feature_extractor: r2d2``
+    without the published checkpoint (the error names its path). Both options run
+    when they have it: tests/test_torch_r2d2_engine.py."""
+    from vo_tpu_torch.models import port_weights
+
+    if case == "visualize":
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        extra, error, match = "visualize_results: true\n", ImportError, "matplotlib"
+    else:
+        monkeypatch.setattr(port_weights, "MODELS_DIR", str(tmp_path / "weights"))
+        extra, error, match = ("feature_extractor: r2d2\n", FileNotFoundError,
+                               "weights/faster2d2_WASF_N16.pt")
     cfg = tmp_path / "cfg.yaml"
-    cfg.write_text(f"image_path: {tmp_path / 'missing'}\n" + extra[case])
+    cfg.write_text(f"image_path: {tmp_path / 'missing'}\n" + extra)
     for flags in ([], ["--refine", "--save-odometry", str(tmp_path / "odo")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(error, match=match):
             vo_run.main(["--config", str(cfg), "--device", "cpu"] + flags)
 
 

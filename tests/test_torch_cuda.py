@@ -15,7 +15,11 @@ best - second > 1e-4. Bundle adjustment and the pose graph sum their blocks in a
 order (``ba/segment.py``): two calls on the card give identical bits; against the CPU
 they are held within rtol 1e-4 of each array's scale. The front-ends (stereo, SURF,
 oriented BRIEF) on the card are held to their CPU runs, and the 44-frame depth-dropout
-drive of tests/test_engine_e2e.py to its assertions.
+drive of tests/test_engine_e2e.py to its assertions. The R2D2 patchnet on the card is
+held to its CPU run (fp32 within 1e-4, bf16 at tests/test_torch_r2d2_model.py's
+tolerances), its extraction must repeat bit for bit, and its matcher
+(``ratio_mutual_nn`` at 2048 x 2048 x 128) and a 16-frame R2D2 engine run go through
+the SIMT kernel.
 """
 
 import numpy as np
@@ -637,3 +641,129 @@ def test_engine_steps_make_no_host_sync_of_their_own(cuda_device):
     mono.run_sequence(*args)
     syncs = _syncs_by_file(lambda: mono.run_sequence(*args))
     assert set(syncs) == {"triangulation.py"} and syncs["triangulation.py"] <= 2 * 5, syncs
+
+
+K_R2D2 = np.array([[200.0, 0.0, 120.0], [0.0, 200.0, 90.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+def _seeded_patchnet(arch, seed=8214):
+    """Full-width seeded parameters with perturbed BatchNorm statistics (the published
+    weights are not in the repository)."""
+    from vo_tpu_torch.models import patchnet
+
+    spec = {"fast": patchnet.FAST_QUAD_L2NET_CONFCFS, "quad": patchnet.QUAD_L2NET_CONFCFS}[arch]
+    g = torch.Generator().manual_seed(seed)
+    params = patchnet.init_patchnet_params(g, spec)
+    for layer in params["convs"]:
+        if "bn_mean" in layer:
+            layer["bn_mean"] = 0.1 * torch.randn(layer["bn_mean"].shape, generator=g)
+            layer["bn_var"] = 0.5 + 1.5 * torch.rand(layer["bn_var"].shape, generator=g)
+    return spec, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["fast", "quad"])
+def test_patchnet_on_the_card_matches_the_cpu(cuda_device, arch):
+    """cuDNN's convolutions against the CPU's on the same parameters and input: fp32
+    (TF32 off) within 1e-4; a bf16 trunk within tests/test_torch_r2d2_model.py's bf16
+    tolerances (each side rounds near-ties its own way)."""
+    from vo_tpu_torch.device import use_fp32_geometry
+    from vo_tpu_torch.models.patchnet import apply_patchnet, params_to
+
+    use_fp32_geometry()
+    spec, params = _seeded_patchnet(arch)
+    x = torch.randn(2, 96, 128, 3, generator=torch.Generator().manual_seed(1))
+    gparams = params_to(params, cuda_device)
+    for dtype, tol, mean_tol in (("float32", {"descriptors": 1e-4, "reliability": 1e-4,
+                                              "repeatability": 1e-4}, 1e-5),
+                                 ("bfloat16", {"descriptors": 1e-2, "reliability": 6e-2,
+                                               "repeatability": 6e-2}, 2.0 ** -8)):
+        cpu = apply_patchnet(params, spec, x, dtype)
+        gpu = apply_patchnet(gparams, spec, x.to(cuda_device), dtype)
+        for k, t in tol.items():
+            d = (gpu[k].cpu() - cpu[k]).abs()
+            assert float(d.max()) <= t and float(d.mean()) <= mean_tol, (dtype, k)
+
+
+@pytest.mark.cuda
+def test_r2d2_extraction_repeats_bit_for_bit(cuda_device):
+    """Two extractions of the same frames on the card give the same bits (default bf16
+    trunk), and an fp32 trunk keeps the CPU's keypoints but for near ties at the cut."""
+    from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    spec, params = _seeded_patchnet("fast")
+    imgs, _, _ = render_sequence(4, K_R2D2, H=180, W=240, step=0.8, yaw_rate=0.01)
+    kw = dict(max_kp=512, rel_thr=0.0, rep_thr=0.0, score_thr=0.0)
+    ex = R2D2Extractor.from_params(spec, params, **kw)
+    a, b = ex(imgs, device=cuda_device), ex(imgs, device=cuda_device)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    ex32 = R2D2Extractor.from_params(spec, params, compute_dtype="float32", **kw)
+    gpu, cpu = ex32(imgs, device=cuda_device), ex32(imgs, device="cpu")
+    for f in range(len(imgs)):
+        g = {tuple(p) for p in gpu.kp[f].cpu().numpy().tolist()}
+        c = {tuple(p) for p in cpu.kp[f].numpy().tolist()}
+        assert len(g & c) >= 0.98 * len(c)
+
+
+@pytest.mark.cuda
+def test_ratio_mutual_nn_kernel_on_unit_descriptors(cuda_device):
+    """R2D2's matcher at its shape (2048 x 2048 x 128, unit-norm real descriptors stored
+    as bf16) through the SIMT kernel against the plain matcher: one launch, the same
+    matches wherever best and second differ by more than 1e-4 and the ratio is more than
+    1e-4 from its threshold."""
+    from vo_tpu_torch.matching.matchers import _unit_dist, ratio_mutual_nn_match
+    from vo_tpu_torch.ops.match import ratio_mutual_nn_match_fused
+
+    a, b, va, vb = (torch.from_numpy(x).to(cuda_device)
+                    for x in _float(np.random.default_rng(81), 2048, 2048, 128))
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    before = (match.launch_wgmma.launches, match.launch_simt.launches)
+    got = ratio_mutual_nn_match_fused(a, b, va, vb, ratio=0.9)
+    torch.cuda.synchronize()
+    assert (match.launch_wgmma.launches, match.launch_simt.launches) == \
+        (before[0], before[1] + 1)
+    ref = ratio_mutual_nn_match(a.float(), b.float(), va, vb, ratio=0.9)
+    _, top2, _ = match.top2_mutual_plain(a, b, va, vb)
+    dist = _unit_dist(top2)
+    sure = ((top2[:, 0] - top2[:, 1] > 1e-4)
+            & ((dist[:, 0] / (dist[:, 1] + 1e-8) - 0.9).abs() > 1e-4)).cpu()
+    assert int(got.mask.sum()) > 300
+    assert torch.equal(got.mask.cpu()[sure], ref.mask.cpu()[sure])
+    assert torch.equal(got.idx.cpu()[sure & ref.mask.cpu()], ref.idx.cpu()[sure & ref.mask.cpu()])
+
+
+@pytest.mark.cuda
+def test_r2d2_engine_on_the_card(cuda_device):
+    """16 frames through ``run_offline_vo`` with R2D2 features (seeded weights,
+    thresholds 0) and ``ratio_mutual_nn`` at 0.9: one SIMT launch per tracked frame and
+    no wgmma launch; the plain matcher's poses up to its first differing match count."""
+    import dataclasses
+
+    from vo_tpu_torch.engine.pipeline import run_offline_vo
+    from vo_tpu_torch.engine.vo import VOConfig, VOEngine
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    spec, params = _seeded_patchnet("fast")
+    imgs, deps, gt = render_sequence(16, K_R2D2, H=180, W=240, step=0.8, yaw_rate=0.01)
+    ex = R2D2Extractor.from_params(spec, params, max_kp=512, rel_thr=0.0, rep_thr=0.0,
+                                   score_thr=0.0)
+    cfg = VOConfig(matcher="ratio_mutual_nn", ratio=0.9, kf_min_matches=60,
+                   kf_min_inliers=30, pnp=PnPConfig(min_inliers=12, n_hypotheses=256))
+    before = (match.launch_wgmma.launches, match.launch_simt.launches)
+    poses, diag, (feats, kp3d) = run_offline_vo(imgs, deps, K_R2D2, vo_config=cfg,
+                                                extractor=ex, extraction_batch=8,
+                                                return_features=True, device=cuda_device)
+    assert (match.launch_wgmma.launches - before[0],
+            match.launch_simt.launches - before[1]) == (0, 15)
+    assert np.isfinite(poses).all() and diag.accepted.mean() > 0.8
+    assert np.linalg.norm(poses[-1, :3, 3] - gt[-1, :3, 3]) < 3.0
+    plain, pdiag = VOEngine(dataclasses.replace(cfg, use_match_kernel=False),
+                            device=cuda_device).run_sequence(
+        feats.kp, feats.desc, feats.valid, kp3d, torch.from_numpy(K_R2D2).to(cuda_device))
+    pm = pdiag.n_matches.cpu().numpy()
+    split = int(np.argmax(pm != diag.n_matches)) if (pm != diag.n_matches).any() else len(pm)
+    np.testing.assert_allclose(plain.cpu().numpy()[:split + 1], poses[:split + 1], atol=5e-3)

@@ -27,6 +27,10 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "vo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {f"vo_tpu_torch/{m}.py" for m in (
+        "models/__init__", "models/patchnet", "models/port_weights", "models/r2d2_extractor",
+        "models/multiscale", "runners/extract", "utils/viz", "evalkit/plotting")} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -181,6 +185,37 @@ def test_mono_slice_defaults_to_gpu(no_cuda, tmp_path):
         torch.from_numpy(np.stack([kp1] * F)), torch.ones(F, 40, 256, dtype=torch.bfloat16),
         torch.ones(F, 40, dtype=torch.bool), torch.ones(F, 40, 3), torch.from_numpy(K))
     assert poses.shape == (F, 4, 4) and diag.accepted.shape == (F - 1,)
+
+
+def test_r2d2_slice_defaults_to_gpu(no_cuda, tmp_path):
+    """The R2D2 extractors, the carried-across parameters and the extract CLI raise
+    without a GPU, and run when asked for the CPU."""
+    from vo_tpu_torch.models.multiscale import MultiscaleConfig, extract_multiscale
+    from vo_tpu_torch.models.patchnet import FAST_QUAD_L2NET_CONFCFS, init_patchnet_params
+    from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
+    from vo_tpu_torch.port_state import patchnet_params_from_jax
+    from vo_tpu_torch.runners import extract
+
+    params = init_patchnet_params(torch.Generator().manual_seed(0), FAST_QUAD_L2NET_CONFCFS)
+    imgs = np.random.default_rng(66).uniform(0, 255, (1, 40, 48)).astype(np.float32)
+    ex = R2D2Extractor.from_params(FAST_QUAD_L2NET_CONFCFS, params, max_kp=8)
+    cfg = MultiscaleConfig(min_size=32, top_k=16, per_scale_k=8)
+    as_jax = {"convs": [{k: np.transpose(v.numpy(), (2, 3, 1, 0)) if k == "w" else v.numpy()
+                         for k, v in layer.items()} for layer in params["convs"]],
+              **{h: {"w": np.transpose(params[h]["w"].numpy(), (2, 3, 1, 0)),
+                     "b": params[h]["b"].numpy()} for h in ("clf", "sal")}}
+    calls = [lambda **kw: ex(imgs, **kw),
+             lambda **kw: extract_multiscale(params, FAST_QUAD_L2NET_CONFCFS, imgs, cfg, **kw),
+             lambda **kw: patchnet_params_from_jax(as_jax, **kw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    assert ex(imgs, device="cpu").desc.device.type == "cpu"
+    back = patchnet_params_from_jax(as_jax, device="cpu")
+    assert torch.equal(back["convs"][3]["w"], params["convs"][3]["w"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract.main(["--images", str(tmp_path / "x.png")])
 
 
 def test_entry_points_run_on_cpu_when_asked(no_cuda):

@@ -1,10 +1,10 @@
 """Carry configuration and a running VO state across from the JAX package.
 
-The main path has no learned parameters. What moves is configuration (the JAX
-dataclasses, given as ``dataclasses.asdict`` dicts), the engine's loop carry
-(``VOState``, given in the ``save_vo_checkpoint`` npz layout), so that a run started
-with the JAX package can be continued by the port, and a bundle-adjustment problem
-(``BAProblem``'s arrays).
+What moves is configuration (the JAX dataclasses, given as ``dataclasses.asdict``
+dicts), the engine's loop carry (``VOState``, given in the ``save_vo_checkpoint`` npz
+layout), so that a run started with the JAX package can be continued by the port, a
+bundle-adjustment problem (``BAProblem``'s arrays), and the R2D2 patchnet's learned
+parameters (its params pytree as numpy arrays).
 """
 
 from __future__ import annotations
@@ -79,3 +79,18 @@ def state_from_numpy(arrays: Mapping, device: str | torch.device | None = None) 
             t = torch.from_numpy(np.array(arrays[f"state_{i}"]))
         fields.append(t.to(dev))
     return VOState(*fields)
+
+
+def patchnet_params_from_jax(params: Mapping, device: str | torch.device | None = None) -> dict:
+    """The port's patchnet parameters on ``device`` (default cuda) from the JAX params
+    pytree as numpy arrays: convolutions HWIO -> OIHW (the heads' 1 x 1 too), biases and
+    BatchNorm running statistics as they are."""
+    dev = resolve_device(device)
+
+    def t(a, conv=False):
+        a = np.asarray(a, np.float32)
+        return to_device(np.transpose(a, (3, 2, 0, 1)) if conv else a, dev)
+
+    convs = [{k: t(v, conv=k == "w") for k, v in layer.items()} for layer in params["convs"]]
+    return {"convs": convs, **{h: {"w": t(params[h]["w"], conv=True), "b": t(params[h]["b"])}
+                               for h in ("clf", "sal")}}

@@ -11,17 +11,21 @@ C++ loader (``native/vo_loader.cpp``, built into ``vo_tpu_torch/_build/`` at fir
 when it opens the directory, the PIL reader otherwise; decode overlaps the device's
 work (``run_offline_vo_streaming``). Optionally refines the trajectory (``--refine``:
 ``engine/refine.py::refine_full``, windowed BA and loop closure), writes
-``<output_filename>.npy`` (stacked 4x4 poses) and evaluates against
-``gt_txt_file_path``.
+``<output_filename>.npy`` (stacked 4x4 poses), renders the reference's
+``visualize_results`` overlays and trajectory plot into ``<output_filename>_viz/``, and
+evaluates against ``gt_txt_file_path``.
 
-``feature_extractor`` is ``orb``, ``sift`` or ``surf`` (box-filter Hessian + SURF-64,
-matched in fp32). Not ported yet, and refused before any frame is read:
-``visualize_results: true`` (ROADMAP queue 1 item 13) and ``r2d2`` (item 8).
+``feature_extractor`` is ``orb``, ``sift``, ``surf`` (box-filter Hessian + SURF-64,
+matched in fp32) or ``r2d2`` (the published ``faster2d2_WASF_N16`` network, read from
+``vo_tpu_torch/models/weights/``; matched by ``ratio_mutual_nn`` in fp32). A missing
+checkpoint, or ``visualize_results: true`` without matplotlib, raises before any frame
+is read.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import NamedTuple
@@ -55,8 +59,9 @@ def build_extractor(cfg: RunConfig):
             return OrbLikeExtractor(max_kp=cfg.max_keypoints)
         return OrbLikeExtractor(max_kp=cfg.max_keypoints, **kw)
     if cfg.feature_extractor == "r2d2":
-        raise NotImplementedError("feature_extractor 'r2d2' is not ported yet (ROADMAP "
-                                  "queue 1, item 8: R2D2)")
+        from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
+
+        return R2D2Extractor.from_pretrained(max_kp=cfg.max_keypoints)
     raise ValueError(f"unknown feature_extractor {cfg.feature_extractor!r}")
 
 
@@ -86,6 +91,53 @@ def refine_poses(poses, feats, kp3d, K, diag, feat_rows=None, save_odometry=None
         save_poses_npy(save_odometry, info["refined_odometry"])
         print(f"[refine] odometry-stage trajectory -> {save_odometry}")
     return closed, info
+
+
+def write_visualizations(out_dir, image_path, feats, vo_cfg, poses, gt=None,
+                         stride: int = 1, max_frames: int = 400, feat_rows=None):
+    """The reference's visualize_results output: per-frame keypoint draws, overlays of
+    consecutive frames' matches (the plain matchers, as the JAX package's XLA ones)
+    and the trajectory plot. Frames are read again from ``image_path`` (the streaming
+    run keeps no pixels). With sparse feature retention, ``feat_rows`` names the frames
+    that still have features; overlays cover those."""
+    from vo_tpu_torch.evalkit.plotting import (draw_keypoints, draw_matches,
+                                               plot_trajectories)
+    from vo_tpu_torch.matching.matchers import ratio_match, ratio_mutual_nn_match
+
+    os.makedirs(out_dir, exist_ok=True)
+    plot_trajectories(os.path.join(out_dir, "trajectory.png"), poses, gt=gt)
+
+    seq = RGBDSequence.from_dir(image_path)
+    if feat_rows is None:
+        frames = np.arange(min(len(seq), feats.kp.shape[0], max_frames))[::stride]
+        rows = frames
+    else:
+        keep = np.asarray(feat_rows) < min(len(seq), max_frames)
+        rows = np.nonzero(keep)[0][::stride]
+        frames = np.asarray(feat_rows)[rows]
+    kps, valid = feats.kp.cpu().numpy(), feats.valid.cpu().numpy()
+    binary = vo_cfg.matcher == "ratio_binary"
+    prev = None
+    for r, i in zip(rows, frames):
+        r, i = int(r), int(i)
+        img, _ = seq[i]
+        draw_keypoints(os.path.join(out_dir, f"kps_{i:06d}.png"), img, kps[r], valid[r])
+        if prev is not None:
+            rj, j, pimg = prev
+            if binary:
+                m = ratio_match(feats.desc[rj], feats.desc[r], feats.valid[rj],
+                                feats.valid[r], ratio=vo_cfg.ratio,
+                                binary_dim=feats.desc.shape[-1])
+            else:
+                m = ratio_mutual_nn_match(feats.desc[rj], feats.desc[r], feats.valid[rj],
+                                          feats.valid[r], ratio=vo_cfg.ratio)
+            mask = m.mask.cpu().numpy()
+            kp1 = kps[rj][mask]
+            kp2 = kps[r][m.idx.cpu().numpy()[mask]]
+            draw_matches(os.path.join(out_dir, f"matches_{j:06d}_{i:06d}.png"),
+                         pimg, img, kp1, kp2, stride=max(len(kp1) // 80, 1))
+        prev = (r, i, img)
+    print(f"[viz] wrote overlays for {len(frames)} frames to {out_dir}/")
 
 
 class RunResult(NamedTuple):
@@ -137,8 +189,9 @@ def run(argv=None) -> RunResult:
     dev = resolve_device(args.device)
     cfg = RunConfig.from_yaml(args.config)
     if cfg.visualize_results:
-        raise NotImplementedError("visualize_results: true is not ported yet (ROADMAP "
-                                  "queue 1, item 13: evalkit/plotting.py)")
+        from vo_tpu_torch.evalkit.plotting import pyplot
+
+        pyplot()                       # without matplotlib, fail before the run
     extractor = build_extractor(cfg)
     K = cfg.camera_intrinsic_matrix
 
@@ -190,8 +243,16 @@ def run(argv=None) -> RunResult:
     save_poses_npy(out, poses)
     print(f"[vo_tpu_torch] wrote {out if out.endswith('.npy') else out + '.npy'}")
 
-    if args.eval and cfg.gt_txt_file_path:
+    gt = None
+    if cfg.gt_txt_file_path and (args.eval or cfg.visualize_results):
         gt = load_poses_txt(kitti_gt_to_modified_txt(cfg.gt_txt_file_path))
+
+    if cfg.visualize_results:
+        viz_dir = (out[:-4] if out.endswith(".npy") else out) + "_viz"
+        write_visualizations(viz_dir, cfg.image_path, feats, cfg.vo, poses, gt=gt,
+                             feat_rows=None if args.retain == "all" else feat_rows)
+
+    if args.eval and gt is not None:
         res = KittiOdomEvaluator().evaluate(gt, poses)
         print(f"[eval] seg trans {res.seg_trans_err_pct:.2f}%  "
               f"seg rot {res.seg_rot_err_deg_per_100m:.3f} deg/100m  "
