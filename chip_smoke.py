@@ -86,7 +86,25 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
     difference printed), the kernel against its plain version on frames 0 and 1; a
     checkpoint in the published layout read back to the same bits; the multiscale
     pyramid on 4 frames, the extract CLI on 4 PNGs, and ``Quad_L2Net_ConfCFS`` on 4
-    frames (time and peak memory).
+    frames (time and peak memory);
+14. R2D2 training at full width (``Fast_Quad_L2Net_ConfCFS``, the trainer's defaults:
+    batch 8, 192 x 192, the grid sampler, lr 1e-4, weight decay 5e-4, seed 8214): 8
+    steps on one fixed batch (every loss finite, no step skipped, the loss falls, step
+    8); one ``train_step_batch`` on the card against the CPU from the same state and
+    batch (the loss within 1e-4 relative, the parameters within 2.5 lr; the same step
+    in fp64 on both, each gradient leaf within 1e-6 of its largest |g|; each gradient
+    leaf of the card's fp32 step within 2e-3 of the fp64 step's; the fp32 card-against-
+    CPU and CPU-against-fp64 distances printed); two
+    8-step runs bit-identical; 30 timed steps on fresh keys (ms/step, images/s, peak
+    memory, and from a profile of 2 steps the CUDA kernels per step and the idle share;
+    the device time of the forwards, the losses and the backward; steps with and
+    without the deterministic algorithms in turns, for their cost); 2 steps of
+    ``Quad_L2Net_ConfCFS``; then
+    ``runners.retrain_parity.main`` at its defaults (the ngh sampler, photometric
+    jitter, the cosine schedule, batch 8, crop 160, lr 3e-4) for 40 steps with an
+    evaluation every 20: one SIMT launch per evaluated pair and none of wgmma, and on
+    one evaluated pair the kernel's mutual nearest neighbours, more than 100 of them,
+    equal to ``mutual_nn_match``'s on the same tensors.
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
 line before it lists each kernel and shape with its launches, error, times and bound.
@@ -124,6 +142,15 @@ BASELINE_M = 0.54      # stereo baseline of bench.py's true-stereo workload (:39
 STEREO_BATCH = 8       # its extraction batch (:411)
 F_MONO = 48            # frames of the mono path (phase 11)
 F_LONG = 288           # frames of the cut long run (phase 12): 230 m, a checkpoint at 256
+TRAIN_FIXED = 8        # phase 14: steps on one fixed batch, and of each repeat run
+TRAIN_TIMED = 30       # phase 14: timed steps on fresh keys (the first 3 a warm-up)
+PARITY_ARGS = ["--steps", "40", "--eval-every", "20", "--skip-ported"]
+# Phase 14's bound on a gradient leaf of the card's fp32 step against the same step in
+# fp64, as a share of the leaf's largest |g| (train-mode BatchNorm's backward cancels;
+# max-pool's and the histogram's kinks take the other slope within rounding). The card
+# is held to the CPU in fp64, to 1e-6; the fp32 card-against-CPU distance adds two such
+# errors, the CPU's depending on its thread count, and is printed, not gated.
+TRAIN_GRAD_TOL = 2e-3
 # The JAX package's MonoVOEngine(MonoVOConfig()) on the first 48 slalom frames, with its
 # own OrbLikeExtractor(max_kp=2048) features, on a CPU (a reference, not a target), as
 # `python tests/refine_reference.py mono 48` prints it.
@@ -1370,6 +1397,7 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
     from vo_tpu_torch.estimation.pnp import PnPConfig
     from vo_tpu_torch.evalkit import KittiOdomEvaluator
     from vo_tpu_torch.features.extractor import Features
+    from vo_tpu_torch import prng
     from vo_tpu_torch.models import port_weights
     from vo_tpu_torch.models.multiscale import (MultiscaleConfig, extract_multiscale,
                                                 pyramid_scales)
@@ -1384,7 +1412,7 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
     Kd = torch.from_numpy(K).to(dev)
     imgs_d, deps_d = torch.from_numpy(imgs[:m]).to(dev), torch.from_numpy(deps[:m]).to(dev)
     spec = FAST_QUAD_L2NET_CONFCFS
-    params = init_patchnet_params(torch.Generator().manual_seed(8214), spec)
+    params = init_patchnet_params(prng.key(8214), spec)
     zero = dict(rel_thr=0.0, rep_thr=0.0, score_thr=0.0)
 
     # Seeded heads clear the published thresholds (0.7 / 0.7, score > 0.85) rarely.
@@ -1539,8 +1567,8 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     quad = R2D2Extractor.from_params(
-        QUAD_L2NET_CONFCFS, init_patchnet_params(torch.Generator().manual_seed(8215),
-                                                 QUAD_L2NET_CONFCFS), max_kp=2048, **zero)
+        QUAD_L2NET_CONFCFS, init_patchnet_params(prng.key(8215), QUAD_L2NET_CONFCFS),
+        max_kp=2048, **zero)
     q_ms, q_passes = _extract_ms(lambda: quad(imgs_d[:4], device=dev), 4)
     base, peak = _peak_mib(lambda: quad(imgs_d[:4], device=dev))
     print(f"timing [{card}] R2D2 extract ({QUAD_L2NET_CONFCFS.name}, bf16 trunk, full "
@@ -1550,6 +1578,247 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
     sub_s["checkpoint_multiscale_cli_quad"] = time.perf_counter() - t0
     print("phase 13 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
     return {"launches": counts["simt"]}
+
+
+def _training_phase(card, errs, dev="cuda") -> dict:
+    """Phase 14: R2D2 training at full width with the trainer's defaults, then the
+    retrain-parity runner at its defaults, cut to 40 steps. Returns the SIMT launches
+    of the runner's MMA evaluations and their pair count."""
+    import contextlib
+
+    import torch
+
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.evalkit import mma
+    from vo_tpu_torch.matching.matchers import mutual_nn_match
+    from vo_tpu_torch.models.patchnet import (FAST_QUAD_L2NET_CONFCFS, QUAD_L2NET_CONFCFS,
+                                              apply_patchnet)
+    from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
+    from vo_tpu_torch.runners import retrain_parity
+    from vo_tpu_torch.train import trainer
+    from vo_tpu_torch.train.losses import r2d2_loss
+    from vo_tpu_torch.train.pairs import synthetic_pair_batch, warp_eval_batch
+
+    sub_s = {}
+    spec, cfg = FAST_QUAD_L2NET_CONFCFS, trainer.TrainConfig()
+
+    def run(n, key=None, spec_=spec):
+        """n steps from a fresh state: on ``key`` each step, else on keys split from
+        the seed; (state, losses, skipped)."""
+        state = trainer.create_train_state(spec_, cfg, device=dev)
+        chain, losses, skipped = prng.key(cfg.seed, dev), [], []
+        for _ in range(n):
+            chain, sub = prng.split(chain).unbind(-2)
+            state, m = trainer.train_step(state, sub if key is None else key, spec_, cfg)
+            losses.append(float(m["total"]))
+            skipped.append(bool(m["skipped"]))
+        return state, losses, skipped
+
+    # (a) One fixed batch (tests/test_train.py:145's slow test at the defaults).
+    t0 = time.perf_counter()
+    state, losses, skipped = run(TRAIN_FIXED, key=prng.key(1, dev))
+    ok = (all(np.isfinite(losses)) and not any(skipped) and losses[-1] < losses[0]
+          and int(state.step) == TRAIN_FIXED)
+    print(f"training [{card}] {spec.name}, batch {cfg.batch}, {cfg.height}x{cfg.width}, "
+          f"{cfg.sampler} sampler, lr {cfg.lr}: {TRAIN_FIXED} steps on one batch, losses "
+          f"{[round(x, 5) for x in losses]}, skipped {sum(skipped)}, step {int(state.step)} "
+          f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training on a fixed batch failed")
+    sub_s["fixed_batch"] = time.perf_counter() - t0
+
+    # (b) The card against the CPU: one step from the same state on the same batch, in
+    # fp32 and, as the reference of both, in fp64.
+    t0 = time.perf_counter()
+    state0 = trainer.create_train_state(spec, cfg, device=dev)
+    batch = synthetic_pair_batch(prng.key(2, dev), cfg.batch, cfg.height, cfg.width)
+    steps = {}
+    for where, dtype in (("card", torch.float32), ("cpu", torch.float32),
+                         ("card64", torch.float64), ("cpu64", torch.float64)):
+        d = dev if where.startswith("card") else "cpu"
+        b_ = tuple(x.to(d, dtype) if x.is_floating_point() else x.to(d) for x in batch)
+        steps[where] = trainer.train_step_batch(trainer.state_to(state0, d, dtype), b_, spec, cfg)
+    (g1, gm), (c1, cm) = steps["card"], steps["cpu"]
+    loss_rel = abs(float(gm["total"]) - float(cm["total"])) / abs(float(cm["total"]))
+    paths = trainer.leaf_paths(c1.params)
+    bn_bias = {("convs", i, "b") for i, l in enumerate(c1.params["convs"]) if "bn_mean" in l}
+
+    def leaf_errs(got, want):
+        """(error / the leaf's largest |g| (the network's for the BatchNorm'd conv
+        biases, whose gradient is rounding noise), path), largest first: Adam's first
+        moment (0.1 g) of two steps."""
+        a = [t.cpu().double() for t in trainer._leaves(got.opt_state.mu)]
+        b = [t.cpu().double() for t in trainer._leaves(want.opt_state.mu)]
+        net = max(float(t.abs().max()) for t in b)
+        return sorted(((float((x - y).abs().max())
+                        / max(net if p in bn_bias else float(y.abs().max()), 1e-300), p)
+                       for p, x, y in zip(paths, a, b)), reverse=True)
+
+    card_cpu = leaf_errs(g1, c1)
+    card64_cpu64 = leaf_errs(steps["card64"][0], steps["cpu64"][0])
+    card_ref, cpu_ref = leaf_errs(g1, steps["card64"][0]), leaf_errs(c1, steps["card64"][0])
+    param_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                    zip(trainer._leaves(g1.params), trainer._leaves(c1.params)))
+    ok = (loss_rel <= 1e-4 and card_ref[0][0] <= TRAIN_GRAD_TOL
+          and card64_cpu64[0][0] <= 1e-6 and param_err <= 2.5 * cfg.lr)
+    top = lambda errs: [(p, f"{e:.2e}") for e, p in errs[:3]]
+    print(f"training [{card}] one step on the card vs the CPU: loss {float(gm['total']):.6f} "
+          f"vs {float(cm['total']):.6f} (rel {loss_rel:.2e}); gradient leaves, error / the "
+          f"leaf's largest |g|, largest three: fp32 card vs CPU {top(card_cpu)}, fp64 card "
+          f"vs CPU {top(card64_cpu64)}; against the fp64 step: fp32 card "
+          f"{top(card_ref)}, fp32 CPU {top(cpu_ref)}; parameters {param_err / cfg.lr:.3f} "
+          f"lr apart -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a training step on the card disagrees with the CPU")
+    sub_s["card_vs_cpu"] = time.perf_counter() - t0
+
+    # (c) Two runs from one seed: the same bits.
+    t0 = time.perf_counter()
+    runs = [trainer._state_leaves(run(TRAIN_FIXED)[0]) for _ in range(2)]
+    differ = [n for (n, a), (_, b) in zip(*runs) if not torch.equal(a, b)]
+    print(f"training [{card}] two {TRAIN_FIXED}-step runs from seed {cfg.seed}: "
+          f"{len(runs[0])} tensors, bit-identical = {not differ}"
+          + ("" if not differ else f" (first differing: {differ[:3]})"))
+    if differ:
+        raise AssertionError("training does not repeat on the card")
+    sub_s["repeat"] = time.perf_counter() - t0
+
+    # (d) Timing on fresh keys, peak memory, a profile of 2 steps; then the same steps
+    # without the deterministic algorithms, for their cost.
+    t0 = time.perf_counter()
+
+    def timed_steps(n):
+        state = trainer.create_train_state(spec, cfg, device=dev)
+        chain, times = prng.key(cfg.seed, dev), []
+        for _ in range(n):
+            chain, sub = prng.split(chain).unbind(-2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = trainer.train_step(state, sub, spec, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return state, times
+
+    state, times = timed_steps(TRAIN_TIMED)
+    ms = float(np.median(times[3:]))
+    base, peak = _peak_mib(lambda: trainer.train_step(state, prng.key(9, dev), spec, cfg))
+    keys = prng.split(prng.key(10, dev), 2)
+    busy_ms, n_kernels, top = _device_profile(
+        lambda: [trainer.train_step(state, k, spec, cfg) for k in keys])
+    line = (f"timing [{card}] training step ({spec.name}, batch {cfg.batch}, "
+            f"{cfg.height}x{cfg.width}, fp32, TF32 off): {ms:.3f} ms/step (median of "
+            f"{TRAIN_TIMED - 3} after 3 warm-up steps; range {min(times[3:]):.3f}-"
+            f"{max(times[3:]):.3f}), {cfg.batch / ms * 1e3:.1f} pairs/s "
+            f"({2 * cfg.batch / ms * 1e3:.1f} images/s); peak device memory of a step "
+            f"{peak:.1f} MiB ({peak - base:.1f} MiB above the {base:.1f} MiB held before it)")
+    if busy_ms is None:
+        line += "; profile: device time not measured (empty trace)"
+    else:
+        line += (f"; profile of 2 steps: device busy {busy_ms / 2:.3f} ms/step, idle share "
+                 f"{1.0 - busy_ms / 2 / ms:.3f}, {n_kernels / 2:.0f} CUDA kernels/step")
+    print(line)
+    for name, count, kms in top:
+        print(f"  training top kernel: {kms / 2:.4f} ms/step, {count / 2:.0f}/step, {name}")
+
+    # Where a step's device time goes: the two forwards, then with the losses, then with
+    # the backward (cumulative), beside the whole step.
+    b1 = synthetic_pair_batch(prng.key(11, dev), cfg.batch, cfg.height, cfg.width)
+    leaves = [t.detach().requires_grad_(not p[2].startswith("bn_"))
+              for t, p in zip(trainer._leaves(state.params), trainer.leaf_paths(state.params))]
+    params = trainer._rebuild(state.params, leaves)
+
+    def forwards():
+        return [apply_patchnet(params, spec, trainer._normalize(x), train=True) for x in b1[:2]]
+
+    def with_losses():
+        return r2d2_loss(*forwards(), b1[2], b1[3])[0]
+
+    def with_backward():
+        return torch.autograd.grad(with_losses(), [t for t in leaves if t.requires_grad])
+
+    for name, fn in (("the two forwards", forwards), ("+ the losses", with_losses),
+                     ("+ the backward", with_backward),
+                     ("the whole step", lambda: trainer.train_step_batch(state, b1, spec, cfg))):
+        with trainer._deterministic():
+            fn()
+            busy, n, top_k = _device_profile(fn)
+        if busy is None:
+            print(f"  training stage [{card}] {name}: device time not measured (empty trace)")
+        else:
+            print(f"  training stage [{card}] {name}: device busy {busy:.3f} ms, {n} CUDA "
+                  f"kernels; largest {top_k[0][0]} {top_k[0][2]:.3f} ms")
+
+    # The deterministic algorithms' cost: steps with and without them, in turns.
+    deterministic = trainer._deterministic
+    turns = {"with": [], "without": []}
+    for _ in range(2):
+        for mode in turns:
+            trainer._deterministic = deterministic if mode == "with" else contextlib.nullcontext
+            try:
+                turns[mode] += timed_steps(8)[1][3:]
+            finally:
+                trainer._deterministic = deterministic
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    print(f"timing [{card}] training step with / without the deterministic algorithms, in "
+          f"turns ({len(turns['with'])} steps each): {med['with']:.3f} / "
+          f"{med['without']:.3f} ms/step (their cost {med['with'] - med['without']:+.3f})")
+    sub_s["timing"] = time.perf_counter() - t0
+
+    # (e) The other architecture, then the retrain-parity runner at its defaults.
+    t0 = time.perf_counter()
+    _, q_losses, q_skipped = run(2, spec_=QUAD_L2NET_CONFCFS)
+    print(f"training [{card}] {QUAD_L2NET_CONFCFS.name}: 2 steps, losses "
+          f"{[round(x, 5) for x in q_losses]}, skipped {sum(q_skipped)}")
+    if not (all(np.isfinite(q_losses)) and not any(q_skipped)):
+        raise AssertionError("Quad_L2Net_ConfCFS does not train")
+    sub_s["quad"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = os.path.join(_build_dir(), "smoke_retrain_parity.json")
+    _reset_counts()
+    rc = retrain_parity.main(PARITY_ARGS + ["--out", out])
+    counts = _counts()
+    with open(out) as f:
+        report = json.load(f)
+    os.remove(out)
+    n_pairs = report["eval_images"] * (1 + len(report["curve"]))
+    print(f"retrain_parity [{card}] (ngh sampler, photometric, cosine, batch "
+          f"{report['batch']}, crop {report['crop']}, lr {report['lr']}, "
+          f"{report['steps']} steps; not gated on accuracy): rc {rc}, mma3_init "
+          f"{report['mma3_init']:.4f} ({report['init_mean_matches']:.1f} matches), curve "
+          f"{[(c['step'], round(c['mma3'], 4), round(c['mean_matches'], 1), round(c['loss'], 4)) for c in report['curve']]}, "
+          f"mean_matches {report['trained_mean_matches']}, match_support_ok "
+          f"{report['match_support_ok']}, train_seconds {report['train_seconds']}, device "
+          f"{report['device']}; match launches {counts} for {n_pairs} evaluated pairs")
+    if rc != 0 or counts != {"wgmma": 0, "simt": n_pairs}:
+        raise AssertionError(f"retrain_parity: rc {rc}, launches {counts}, expected "
+                             f"{n_pairs} simt")
+
+    # One evaluated pair (the initial weights, as at the runner's first evaluation): the
+    # kernel's mutual nearest neighbours against the plain ones.
+    images = torch.from_numpy(retrain_parity.load_eval_images(None)[:1]).to(dev)
+    _, img2 = warp_eval_batch(prng.key(3, dev), images)
+    init = trainer.create_train_state(spec, cfg, device=dev).params
+    ex = R2D2Extractor.from_params(spec, init, max_kp=1024, rel_thr=0.0, rep_thr=0.0,
+                                   score_thr=0.0, score_mode="rep")
+    f1, f2 = ex(images, device=dev), ex(img2, device=dev)
+    d1, d2 = f1.desc[0].float().contiguous(), f2.desc[0].float().contiguous()
+    v1, v2 = f1.valid[0].contiguous(), f2.valid[0].contiguous()
+    idx, mask = mma.mutual_matches(d1, d2, v1, v2)
+    ref = mutual_nn_match(d1, d2, v1, v2, threshold=mma.MUTUAL_NN_FLOOR)
+    same = (np.array_equal(mask, ref.mask.cpu().numpy())
+            and np.array_equal(idx[mask], ref.idx.cpu().numpy()[mask]))
+    print(f"MMA pair [{card}]: kernel mutual NN {int(mask.sum())} matches, "
+          f"mutual_nn_match {int(ref.mask.sum())}, identical = {same}")
+    if not same:
+        raise AssertionError("the MMA harness's kernel matches differ from mutual_nn_match")
+    if int(mask.sum()) <= 100:
+        raise AssertionError(f"the MMA pair has {int(mask.sum())} kernel matches; the "
+                             f"comparison needs more than 100")
+    errs["simt"].append(_check_kernel("MMA pair (R2D2, 1024 keypoints)", d1, d2, v1, v2, False))
+    sub_s["retrain_parity"] = time.perf_counter() - t0
+    print("phase 14 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
+    return {"launches": counts["simt"], "pairs": n_pairs}
 
 
 def main() -> None:
@@ -1840,9 +2109,17 @@ def _smoke(pool, long_dir) -> None:
     r2d2 = _r2d2_phase(card, imgs, deps, gt, errs)
     phase_s["r2d2"] = time.perf_counter() - t0
     entries[1]["launches"] += r2d2["launches"]
+
+    # Phase 14: R2D2 training and the retrain-parity runner.
+    t0 = time.perf_counter()
+    training = _training_phase(card, errs)
+    phase_s["training"] = time.perf_counter() - t0
+    entries[1]["launches"] += training["launches"]
     entries[1]["launches_by_path"] = {
         "SIFT path (run_offline_vo, 160 frames)": counts_s["simt"],
-        f"R2D2 path (VOEngine on R2D2 features, {F_TIMED} frames)": r2d2["launches"]}
+        f"R2D2 path (VOEngine on R2D2 features, {F_TIMED} frames)": r2d2["launches"],
+        f"MMA harness (retrain_parity, {training['pairs']} evaluated pairs)":
+            training["launches"]}
 
     by_path = {"main path (run_offline_vo, 160 frames)": launches,
                "refinement (refine_full, loop workload)": refine_launches["refine_full"],

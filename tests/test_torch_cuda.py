@@ -19,7 +19,8 @@ drive of tests/test_engine_e2e.py to its assertions. The R2D2 patchnet on the ca
 held to its CPU run (fp32 within 1e-4, bf16 at tests/test_torch_r2d2_model.py's
 tolerances), its extraction must repeat bit for bit, and its matcher
 (``ratio_mutual_nn`` at 2048 x 2048 x 128) and a 16-frame R2D2 engine run go through
-the SIMT kernel.
+the SIMT kernel. A training step on the card is held to its CPU run, two training runs
+repeat bit for bit, and the MMA harness's matches go through the SIMT kernel.
 """
 
 import numpy as np
@@ -647,17 +648,25 @@ K_R2D2 = np.array([[200.0, 0.0, 120.0], [0.0, 200.0, 90.0], [0.0, 0.0, 1.0]], np
 
 
 def _seeded_patchnet(arch, seed=8214):
-    """Full-width seeded parameters with perturbed BatchNorm statistics (the published
-    weights are not in the repository)."""
+    """Full-width parameters drawn from a torch generator, He-initialised, with perturbed
+    BatchNorm statistics (the published weights are not in the repository)."""
     from vo_tpu_torch.models import patchnet
 
     spec = {"fast": patchnet.FAST_QUAD_L2NET_CONFCFS, "quad": patchnet.QUAD_L2NET_CONFCFS}[arch]
     g = torch.Generator().manual_seed(seed)
-    params = patchnet.init_patchnet_params(g, spec)
-    for layer in params["convs"]:
-        if "bn_mean" in layer:
-            layer["bn_mean"] = 0.1 * torch.randn(layer["bn_mean"].shape, generator=g)
-            layer["bn_var"] = 0.5 + 1.5 * torch.rand(layer["bn_var"].shape, generator=g)
+    convs = []
+    for cs in spec.convs:
+        he = torch.sqrt(torch.tensor(2.0 / (cs.k * cs.k * cs.in_ch))).item()
+        convs.append({"w": torch.randn(cs.out_ch, cs.in_ch, cs.k, cs.k, generator=g) * he,
+                      "b": torch.zeros(cs.out_ch)})
+    d = spec.out_dim
+    params = {"convs": convs,
+              "clf": {"w": torch.randn(2, d, 1, 1, generator=g) * 0.05, "b": torch.zeros(2)},
+              "sal": {"w": torch.randn(1, d, 1, 1, generator=g) * 0.05, "b": torch.zeros(1)}}
+    for cs, layer in zip(spec.convs, convs):
+        if cs.bn:
+            layer["bn_mean"] = 0.1 * torch.randn(cs.out_ch, generator=g)
+            layer["bn_var"] = 0.5 + 1.5 * torch.rand(cs.out_ch, generator=g)
     return spec, params
 
 
@@ -767,3 +776,87 @@ def test_r2d2_engine_on_the_card(cuda_device):
     pm = pdiag.n_matches.cpu().numpy()
     split = int(np.argmax(pm != diag.n_matches)) if (pm != diag.n_matches).any() else len(pm)
     np.testing.assert_allclose(plain.cpu().numpy()[:split + 1], poses[:split + 1], atol=5e-3)
+
+
+def _narrow_train(seed=0):
+    from vo_tpu_torch.models import patchnet
+    from vo_tpu_torch.train import trainer
+
+    spec = patchnet.PatchNetSpec("narrow", patchnet._fast_quad_specs(2, 64), out_dim=64,
+                                 upsample=2)
+    return spec, trainer.TrainConfig(batch=4, height=96, width=96)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One ``train_step_batch`` from the same state and batch. In fp64 the card's
+    gradients (Adam's first moment, 0.1 g) equal the CPU's within 1e-6 of each leaf's
+    largest value (of the network's for the conv biases that train-mode BatchNorm
+    follows, whose gradient is rounding noise). In fp32 the loss is within 1e-4
+    relative and the parameters within 2.5 lr (Adam's first step is +-lr per weight);
+    fp32 gradients of this step are 1e-3-1e-2 of a leaf from the fp64 ones on either
+    device, so chip_smoke.py's phase 14 holds them at full width, not here."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.train import trainer
+    from vo_tpu_torch.train.pairs import synthetic_pair_batch
+
+    spec, cfg = _narrow_train()
+    state = trainer.create_train_state(spec, cfg, device="cpu")
+    batch = synthetic_pair_batch(prng.key(3), cfg.batch, cfg.height, cfg.width)
+
+    def step(device, dtype):
+        b = tuple(x.to(device, dtype) if x.is_floating_point() else x.to(device) for x in batch)
+        return trainer.train_step_batch(trainer.state_to(state, device, dtype), b, spec, cfg)
+
+    (g64, _), (c64, _) = step(cuda_device, torch.float64), step("cpu", torch.float64)
+    bn = {("convs", i, "b") for i, l in enumerate(state.params["convs"]) if "bn_mean" in l}
+    mu_g = [t.cpu() for t in trainer._leaves(g64.opt_state.mu)]
+    mu_c = trainer._leaves(c64.opt_state.mu)
+    net = max(float(m.abs().max()) for m in mu_c)
+    errs = {p: float((a - b).abs().max()) / (net if p in bn else float(b.abs().max()))
+            for p, a, b in zip(trainer.leaf_paths(state.params), mu_g, mu_c)
+            if float(b.abs().max()) > 0}
+    assert max(errs.values()) <= 1e-6, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+
+    (g1, gm), (c1, cm) = step(cuda_device, torch.float32), step("cpu", torch.float32)
+    assert float(gm["total"]) == pytest.approx(float(cm["total"]), rel=1e-4)
+    for a, b in zip(trainer._leaves(g1.params), trainer._leaves(c1.params)):
+        assert float((a.cpu() - b).abs().max()) <= 2.5 * cfg.lr
+
+
+@pytest.mark.cuda
+def test_training_repeats_bit_for_bit_on_the_card(cuda_device):
+    """Two 4-step runs from one seed give identical parameters and optimizer state."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.train import trainer
+
+    spec, cfg = _narrow_train()
+    runs = []
+    for _ in range(2):
+        state = trainer.create_train_state(spec, cfg, device=cuda_device)
+        key = prng.key(5, cuda_device)
+        for _ in range(4):
+            key, sub = prng.split(key).unbind(-2)
+            state, _ = trainer.train_step(state, sub, spec, cfg)
+        runs.append(trainer._state_leaves(state))
+    for (n, a), (_, b) in zip(*runs):
+        assert torch.equal(a, b), n
+
+
+@pytest.mark.cuda
+def test_mma_takes_the_simt_kernel(cuda_device):
+    """``evalkit.mma.mutual_matches`` on CUDA tensors: one SIMT launch, the result of
+    ``mutual_nn_match`` on the same tensors."""
+    from vo_tpu_torch.evalkit.mma import mutual_matches
+    from vo_tpu_torch.matching.matchers import mutual_nn_match
+
+    a, b, va, vb = (torch.from_numpy(x).to(cuda_device)
+                    for x in _float(np.random.default_rng(84), 1024, 1100, 128))
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    before = (match.launch_wgmma.launches, match.launch_simt.launches)
+    idx, mask = mutual_matches(a, b, va, vb)
+    assert (match.launch_wgmma.launches, match.launch_simt.launches) == \
+        (before[0], before[1] + 1)
+    ref = mutual_nn_match(a, b, va, vb, threshold=0.9)
+    assert np.array_equal(mask, ref.mask.cpu().numpy()) and mask.sum() > 100
+    assert np.array_equal(idx[mask], ref.idx.cpu().numpy()[mask])

@@ -30,7 +30,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {f"vo_tpu_torch/{m}.py" for m in (
         "models/__init__", "models/patchnet", "models/port_weights", "models/r2d2_extractor",
-        "models/multiscale", "runners/extract", "utils/viz", "evalkit/plotting")} <= names
+        "models/multiscale", "runners/extract", "utils/viz", "evalkit/plotting",
+        "train/__init__", "train/pairs", "train/losses", "train/trainer", "train/datasets",
+        "runners/train_r2d2", "runners/retrain_parity", "evalkit/mma", "utils/seg",
+        "utils/profiling", "utils/debug", "prng", "models/patchnet", "port_state")} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -190,13 +193,14 @@ def test_mono_slice_defaults_to_gpu(no_cuda, tmp_path):
 def test_r2d2_slice_defaults_to_gpu(no_cuda, tmp_path):
     """The R2D2 extractors, the carried-across parameters and the extract CLI raise
     without a GPU, and run when asked for the CPU."""
+    from vo_tpu_torch import prng
     from vo_tpu_torch.models.multiscale import MultiscaleConfig, extract_multiscale
     from vo_tpu_torch.models.patchnet import FAST_QUAD_L2NET_CONFCFS, init_patchnet_params
     from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
     from vo_tpu_torch.port_state import patchnet_params_from_jax
     from vo_tpu_torch.runners import extract
 
-    params = init_patchnet_params(torch.Generator().manual_seed(0), FAST_QUAD_L2NET_CONFCFS)
+    params = init_patchnet_params(prng.key(0), FAST_QUAD_L2NET_CONFCFS)
     imgs = np.random.default_rng(66).uniform(0, 255, (1, 40, 48)).astype(np.float32)
     ex = R2D2Extractor.from_params(FAST_QUAD_L2NET_CONFCFS, params, max_kp=8)
     cfg = MultiscaleConfig(min_size=32, top_k=16, per_scale_k=8)
@@ -216,6 +220,52 @@ def test_r2d2_slice_defaults_to_gpu(no_cuda, tmp_path):
     assert torch.equal(back["convs"][3]["w"], params["convs"][3]["w"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract.main(["--images", str(tmp_path / "x.png")])
+
+
+def test_training_slice_defaults_to_gpu(no_cuda, tmp_path):
+    """The trainer, the training CLIs, the MMA harness, the segmentation net and the
+    carried-across training state raise without a GPU, and run when asked for the CPU
+    (or given CPU tensors)."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.evalkit.mma import mma_on_warps
+    from vo_tpu_torch.models import patchnet
+    from vo_tpu_torch.port_state import segnet_params_from_jax, train_state_from_jax
+    from vo_tpu_torch.runners import retrain_parity, train_r2d2
+    from vo_tpu_torch.train import trainer
+    from vo_tpu_torch.utils import seg
+
+    spec = patchnet.PatchNetSpec("t", patchnet._fast_quad_specs(1, 8), out_dim=8, upsample=2)
+    cfg = trainer.TrainConfig(batch=1, height=32, width=32)
+    state = trainer.create_train_state(spec, cfg, device="cpu")
+    as_jax = lambda p: {"convs": [{k: np.transpose(v.numpy(), (2, 3, 1, 0)) if k == "w"
+                                   else v.numpy() for k, v in layer.items()}
+                                  for layer in p["convs"]],
+                        **{h: {"w": np.transpose(p[h]["w"].numpy(), (2, 3, 1, 0)),
+                               "b": p[h]["b"].numpy()} for h in ("clf", "sal")}}
+    from collections import namedtuple
+    adam = namedtuple("ScaleByAdamState", "count mu nu")(0, as_jax(state.opt_state.mu),
+                                                         as_jax(state.opt_state.nu))
+    segp = {k: {"w": np.zeros((3, 3, 3, 4), np.float32), "b": np.zeros(4, np.float32)}
+            for k in ("stem",)}
+    imgs = np.random.default_rng(67).uniform(0, 255, (1, 32, 32)).astype(np.float32)
+    calls = [lambda **kw: trainer.create_train_state(spec, cfg, **kw),
+             lambda **kw: train_state_from_jax(as_jax(state.params), (adam,), 0, **kw),
+             lambda **kw: segnet_params_from_jax(segp, **kw),
+             lambda **kw: seg.heuristic_road_mask(imgs[0], **kw),
+             lambda **kw: mma_on_warps(lambda im: None, imgs, prng.key(0), **kw)]
+    for call in calls[:4]:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[4]()
+    for main in (lambda a: train_r2d2.main(a + ["--save-path", str(tmp_path / "c")]),
+                 lambda a: retrain_parity.main(a + ["--out", str(tmp_path / "r.json")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--steps", "1"])
+    new, metrics = trainer.train_step(state, prng.key(0), spec, cfg)
+    assert new.step.device.type == "cpu" and int(new.step) == 1
+    assert bool(seg.heuristic_road_mask(torch.from_numpy(imgs[0])).device.type == "cpu")
 
 
 def test_entry_points_run_on_cpu_when_asked(no_cuda):

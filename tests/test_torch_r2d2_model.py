@@ -24,6 +24,7 @@ import torch
 
 from vo_tpu.models import patchnet as jpatchnet
 from vo_tpu.models import port_weights as jport_weights
+from vo_tpu_torch import prng
 from vo_tpu_torch.models import patchnet, port_weights
 from vo_tpu_torch.port_state import patchnet_params_from_jax
 
@@ -117,14 +118,14 @@ def test_odd_sizes_keep_shapes():
     x = torch.randn(1, 21, 35, 3, generator=g)
     for tspec, hw in ((patchnet.QUAD_L2NET_CONFCFS, (21, 35)),
                       (patchnet.FAST_QUAD_L2NET_CONFCFS, (20, 34))):
-        out = patchnet.apply_patchnet(patchnet.init_patchnet_params(g, tspec), tspec, x)
+        out = patchnet.apply_patchnet(patchnet.init_patchnet_params(prng.key(5), tspec),
+                                      tspec, x)
         assert out["reliability"].shape == (1, *hw)
 
 
 def test_init_params_shapes_and_scale():
-    g = torch.Generator().manual_seed(0)
     for jspec, tspec in SPECS.values():
-        tp = patchnet.init_patchnet_params(g, tspec)
+        tp = patchnet.init_patchnet_params(prng.key(0), tspec)
         jp = jax.tree_util.tree_map(np.asarray,
                                     jpatchnet.init_patchnet_params(jax.random.key(0), jspec))
         for t, j, cs in zip(tp["convs"], jp["convs"], tspec.convs):

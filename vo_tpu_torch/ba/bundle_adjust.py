@@ -33,6 +33,7 @@ from vo_tpu_torch.ba.segment import segment_sum, segments
 from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.geometry.se3 import se3_exp
 from vo_tpu_torch.geometry.so3 import hat
+from vo_tpu_torch.ops.smalllinalg import adjugate3x3
 
 
 @dataclass(frozen=True)
@@ -172,21 +173,11 @@ def damped_inv3(Hll: torch.Tensor, damping) -> torch.Tensor:
     trace = Hll[..., 0, 0] + Hll[..., 1, 1] + Hll[..., 2, 2]
     eye = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     H = Hll + (damping * torch.clamp(trace, min=1e-6)[..., None, None] / 3.0 + 1e-8) * eye
-    a = [[H[..., i, j] for j in range(3)] for i in range(3)]
-    adj = torch.stack([
-        torch.stack([a[1][1] * a[2][2] - a[1][2] * a[2][1],
-                     a[0][2] * a[2][1] - a[0][1] * a[2][2],
-                     a[0][1] * a[1][2] - a[0][2] * a[1][1]], dim=-1),
-        torch.stack([a[1][2] * a[2][0] - a[1][0] * a[2][2],
-                     a[0][0] * a[2][2] - a[0][2] * a[2][0],
-                     a[0][2] * a[1][0] - a[0][0] * a[1][2]], dim=-1),
-        torch.stack([a[1][0] * a[2][1] - a[1][1] * a[2][0],
-                     a[0][1] * a[2][0] - a[0][0] * a[2][1],
-                     a[0][0] * a[1][1] - a[0][1] * a[1][0]], dim=-1),
-    ], dim=-2)
+    adj = adjugate3x3(H)
     # Cofactor expansion along row 0 (JAX takes an LU determinant: same value to fp32
     # rounding, without a batched LU on the card).
-    det = a[0][0] * adj[..., 0, 0] + a[0][1] * adj[..., 1, 0] + a[0][2] * adj[..., 2, 0]
+    det = (H[..., 0, 0] * adj[..., 0, 0] + H[..., 0, 1] * adj[..., 1, 0]
+           + H[..., 0, 2] * adj[..., 2, 0])
     return adj / det.clamp(min=1e-12)[..., None, None]             # (L, 3, 3)
 
 

@@ -2,11 +2,13 @@
 
 The two published architectures (``QUAD_L2NET_CONFCFS``: a dilated full-resolution
 trunk; ``FAST_QUAD_L2NET_CONFCFS``: one 2x max-pool early and a bilinear 2x upsample
-at the end) with the JAX package's layer tuples, and an inference forward that repeats
-its arithmetic: dilated convolutions padded symmetrically by ``((k-1)*d)//2``,
-affine-free BatchNorm from running statistics as ``(x - mean) * rsqrt(var + eps)``,
-128-d L2-normed descriptors, and the reliability (2-channel softmax) and repeatability
-(softplus ratio) heads on x^2.
+at the end) with the JAX package's layer tuples, and a forward that repeats its
+arithmetic: dilated convolutions padded symmetrically by ``((k-1)*d)//2``,
+affine-free BatchNorm as ``(x - mean) * rsqrt(var + eps)`` (from the running
+statistics, or in train mode from the batch's moments), 128-d L2-normed descriptors,
+and the reliability (2-channel softmax) and repeatability (softplus ratio) heads on
+x^2. The train-mode forward is differentiable like the JAX one: its gradients follow
+``jax.grad`` of ``vo_tpu/models/patchnet.py::apply_patchnet(train=True)``.
 
 Parameters are a dict like the JAX pytree, holding torch tensors with convolutions
 in OIHW: ``{"convs": [{"w", "b"[, "bn_mean", "bn_var"]}, ...], "clf": {"w", "b"},
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vo_tpu_torch import prng
 from vo_tpu_torch.ops.image import resize_bilinear
 
 BN_EPS = 1e-5
@@ -91,27 +94,33 @@ FAST_QUAD_L2NET_CONFCFS = PatchNetSpec(
     name="Fast_Quad_L2Net_ConfCFS", convs=_fast_quad_specs(), upsample=2)
 
 
-def init_patchnet_params(generator: torch.Generator, spec: PatchNetSpec,
+def init_patchnet_params(key: torch.Tensor, spec: PatchNetSpec,
                          dtype: torch.dtype = torch.float32) -> dict:
-    """He-initialised parameters on the CPU, drawn from ``generator`` (the JAX
-    package's scheme; its bits differ): conv weights N(0, 2 / fan_in), zero biases,
-    running mean 0 and variance 1, heads N(0, 0.05^2)."""
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, dtype=dtype)
+    """He-initialised parameters drawn from the ``prng`` key ``key``, on its device, as
+    the JAX package draws them from the same key: conv weights N(0, 2 / fan_in) (one
+    ``normal`` per layer in HWIO, transposed to OIHW), zero biases, running mean 0 and
+    variance 1, heads N(0, 0.05^2)."""
+    keys = prng.split(key, len(spec.convs) + 2)
+
+    def normal(k, i, o, kh, kw):
+        return prng.normal(k, (kh, kw, i, o)).permute(3, 2, 0, 1).contiguous().to(dtype)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=key.device)
 
     convs = []
-    for cs in spec.convs:
+    for k, cs in zip(keys, spec.convs):
         fan_in = cs.k * cs.k * cs.in_ch
-        layer = {"w": normal(cs.out_ch, cs.in_ch, cs.k, cs.k) * (2.0 / fan_in) ** 0.5,
-                 "b": torch.zeros(cs.out_ch, dtype=dtype)}
+        scale = torch.sqrt(torch.tensor(2.0 / fan_in, dtype=torch.float32)).item()
+        layer = {"w": normal(k, cs.in_ch, cs.out_ch, cs.k, cs.k) * scale, "b": zeros(cs.out_ch)}
         if cs.bn:
-            layer["bn_mean"] = torch.zeros(cs.out_ch, dtype=dtype)
-            layer["bn_var"] = torch.ones(cs.out_ch, dtype=dtype)
+            layer["bn_mean"] = zeros(cs.out_ch)
+            layer["bn_var"] = torch.ones_like(layer["bn_mean"])
         convs.append(layer)
     d = spec.out_dim
     return {"convs": convs,
-            "clf": {"w": normal(2, d, 1, 1) * 0.05, "b": torch.zeros(2, dtype=dtype)},
-            "sal": {"w": normal(1, d, 1, 1) * 0.05, "b": torch.zeros(1, dtype=dtype)}}
+            "clf": {"w": normal(keys[-2], d, 2, 1, 1) * 0.05, "b": zeros(2)},
+            "sal": {"w": normal(keys[-1], d, 1, 1, 1) * 0.05, "b": zeros(1)}}
 
 
 def params_to(params: dict, device) -> dict:
@@ -188,14 +197,14 @@ def _dtype(dt) -> torch.dtype:
 
 def _softplus_ratio(x: torch.Tensor) -> torch.Tensor:
     """softplus(x) / (1 + softplus(x)), with softplus as ``jax.nn.softplus`` computes
-    it (``logaddexp(x, 0)``)."""
-    s = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    it (``logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|)), gradient sigmoid(x))."""
+    s = torch.logaddexp(x, torch.zeros_like(x))
     return s / (1.0 + s)
 
 
 def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor,
-                   compute_dtype=torch.float32) -> dict:
-    """Inference forward.
+                   compute_dtype=torch.float32, train: bool = False) -> dict:
+    """Forward pass.
 
     Args:
       params: a parameter dict (``init_patchnet_params``, ``load_torch_checkpoint``)
@@ -203,22 +212,35 @@ def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor,
       images: (B, H, W, 3) ImageNet-normalised fp32 (H, W even for the Fast variant).
       compute_dtype: the trunk's dtype (a torch dtype or its name). Each convolution
         runs in it and then adds its bias in it; BatchNorm runs in fp32 and casts
-        back; the heads run in fp32.
+        back; the heads run in fp32 (both in fp64 when the trunk is fp64, which gives
+        an fp64 reference of the same computation).
+      train: True normalises with the batch's moments over (B, H, W) in fp32 (the
+        population variance, as ``jnp.var``) instead of the running statistics, and
+        adds ``bn_stats``, the per-layer (mean, var), to the output for
+        ``update_bn_running_stats``.
     Returns:
       dict(descriptors (B, H', W', D) L2-normalised fp32, reliability (B, H', W'),
-           repeatability (B, H', W')).
+           repeatability (B, H', W')[, bn_stats]).
     """
     if isinstance(params, PatchNet):
         params = params.params()
     dt = _dtype(compute_dtype)
+    acc = torch.float64 if dt == torch.float64 else torch.float32
+    bn_stats = []
     x = images.to(dt).permute(0, 3, 1, 2)          # NCHW view of NHWC memory
     for cs, layer in zip(spec.convs, params["convs"]):
         x = F.conv2d(x, layer["w"].to(dt), padding=cs.pad, dilation=cs.dilation)
         x = x + layer["b"].to(dt)[:, None, None]
         if cs.bn:
-            scale = torch.rsqrt(layer["bn_var"].to(torch.float32) + BN_EPS)
-            x = ((x.to(torch.float32) - layer["bn_mean"][:, None, None])
-                 * scale[:, None, None]).to(dt)
+            xf = x.to(acc)
+            if train:
+                mean = torch.mean(xf, dim=(0, 2, 3))
+                var = torch.mean(torch.square(xf - mean[:, None, None]), dim=(0, 2, 3))
+                bn_stats.append((mean, var))
+            else:
+                mean, var = layer["bn_mean"], layer["bn_var"]
+            scale = torch.rsqrt(var.to(acc) + BN_EPS)
+            x = ((xf - mean[:, None, None]) * scale[:, None, None]).to(dt)
         if cs.relu:
             x = torch.relu(x)
         if cs.pool_after > 1:
@@ -228,13 +250,32 @@ def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor,
         _, h, w, _ = x.shape
         x = resize_bilinear(x, (h * spec.upsample, w * spec.upsample))
 
-    x = x.to(torch.float32)
+    x = x.to(acc)
     x2 = x * x
     urel = x2 @ params["clf"]["w"][:, :, 0, 0].T + params["clf"]["b"]
     urep = x2 @ params["sal"]["w"][:, :, 0, 0].T + params["sal"]["b"]
 
     desc = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
-    e = torch.exp(urel - torch.amax(urel, dim=-1, keepdim=True))
+    # The max is a constant of the softmax, as in jax.nn.softmax's gradient.
+    e = torch.exp(urel - torch.amax(urel, dim=-1, keepdim=True).detach())
     reliability = e[..., 1] / torch.sum(e, dim=-1)
-    return {"descriptors": desc, "reliability": reliability,
-            "repeatability": _softplus_ratio(urep[..., 0])}
+    out = {"descriptors": desc, "reliability": reliability,
+           "repeatability": _softplus_ratio(urep[..., 0])}
+    if train:
+        out["bn_stats"] = bn_stats
+    return out
+
+
+def update_bn_running_stats(params: dict, bn_stats: list, momentum: float = 0.9) -> dict:
+    """Fold a train-mode forward's batch moments into the running statistics:
+    ``momentum * old + (1 - momentum) * batch`` per BatchNorm layer (a new dict; the
+    other tensors are shared)."""
+    it = iter(bn_stats)
+    convs = []
+    for layer in params["convs"]:
+        if "bn_mean" in layer:
+            mean, var = next(it)
+            layer = dict(layer, bn_mean=momentum * layer["bn_mean"] + (1 - momentum) * mean,
+                         bn_var=momentum * layer["bn_var"] + (1 - momentum) * var)
+        convs.append(layer)
+    return {**params, "convs": convs}

@@ -71,6 +71,24 @@ def det3x3(M: torch.Tensor) -> torch.Tensor:
             + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
 
 
+def adjugate3x3(M: torch.Tensor) -> torch.Tensor:
+    """Adjugate of (..., 3, 3): ``M @ adj = det(M) I``. With
+    ``det = M00 adj00 + M01 adj10 + M02 adj20`` it gives the inverse without an LU
+    (``torch.linalg.inv`` checks its status on the host, a sync)."""
+    a = [[M[..., i, j] for j in range(3)] for i in range(3)]
+    return torch.stack([
+        torch.stack([a[1][1] * a[2][2] - a[1][2] * a[2][1],
+                     a[0][2] * a[2][1] - a[0][1] * a[2][2],
+                     a[0][1] * a[1][2] - a[0][2] * a[1][1]], dim=-1),
+        torch.stack([a[1][2] * a[2][0] - a[1][0] * a[2][2],
+                     a[0][0] * a[2][2] - a[0][2] * a[2][0],
+                     a[0][2] * a[1][0] - a[0][0] * a[1][2]], dim=-1),
+        torch.stack([a[1][0] * a[2][1] - a[1][1] * a[2][0],
+                     a[0][1] * a[2][0] - a[0][0] * a[2][1],
+                     a[0][0] * a[1][1] - a[0][1] * a[1][0]], dim=-1),
+    ], dim=-2)
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 

@@ -3,12 +3,16 @@
 What moves is configuration (the JAX dataclasses, given as ``dataclasses.asdict``
 dicts), the engine's loop carry (``VOState``, given in the ``save_vo_checkpoint`` npz
 layout), so that a run started with the JAX package can be continued by the port, a
-bundle-adjustment problem (``BAProblem``'s arrays), and the R2D2 patchnet's learned
-parameters (its params pytree as numpy arrays).
+bundle-adjustment problem (``BAProblem``'s arrays), the R2D2 patchnet's learned
+parameters (its params pytree as numpy arrays), its whole training state (params,
+optax's AdamW state and step, from memory or from a ``save_checkpoint`` file), so that
+a training run started with the JAX package can be resumed by the port, and the road
+segmentation net's parameters.
 """
 
 from __future__ import annotations
 
+import json
 from collections.abc import Mapping
 
 import numpy as np
@@ -22,6 +26,8 @@ from vo_tpu_torch.engine.refine import RefineConfig
 from vo_tpu_torch.engine.vo import VOConfig, VOState
 from vo_tpu_torch.estimation.pnp import PnPConfig
 from vo_tpu_torch.features.extractor import OrbLikeExtractor
+from vo_tpu_torch.models.patchnet import PatchNetSpec
+from vo_tpu_torch.train.trainer import AdamWState, TrainConfig, TrainState, leaf_paths
 
 
 def config_from_jax(fields: Mapping):
@@ -94,3 +100,85 @@ def patchnet_params_from_jax(params: Mapping, device: str | torch.device | None 
     convs = [{k: t(v, conv=k == "w") for k, v in layer.items()} for layer in params["convs"]]
     return {"convs": convs, **{h: {"w": t(params[h]["w"], conv=True), "b": t(params[h]["b"])}
                                for h in ("clf", "sal")}}
+
+
+def _oihw(a) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(a, np.float32), (3, 2, 0, 1)))
+
+
+def segnet_params_from_jax(params: Mapping, device: str | torch.device | None = None) -> dict:
+    """The port's road-segmentation parameters on ``device`` (default cuda) from the
+    JAX pytree as numpy arrays: weights HWIO -> OIHW, biases as they are."""
+    dev = resolve_device(device)
+    return {name: {"w": to_device(_oihw(layer["w"]), dev),
+                   "b": to_device(np.array(layer["b"], np.float32), dev)}
+            for name, layer in params.items()}
+
+
+def _train_state(params, count, mu, nu, step, dev) -> TrainState:
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32).to(dev)
+
+    return TrainState(patchnet_params_from_jax(params, dev),
+                      AdamWState(scalar(count), patchnet_params_from_jax(mu, dev),
+                                 patchnet_params_from_jax(nu, dev)),
+                      scalar(step))
+
+
+def train_state_from_jax(params: Mapping, opt_state, step,
+                         device: str | torch.device | None = None) -> TrainState:
+    """The port's TrainState on ``device`` (default cuda) from the JAX trainer's, as
+    numpy arrays: the params pytree, optax's adamw state (the tuple whose
+    ``ScaleByAdamState`` holds count, mu and nu; with the cosine schedule also a
+    ``ScaleByScheduleState`` whose count must equal Adam's) and the step."""
+    dev = resolve_device(device)
+    fields = [(s, getattr(s, "_fields", ())) for s in opt_state]
+    adam = next(s for s, f in fields if "mu" in f)
+    for s, f in fields:
+        if f == ("count",) and int(np.asarray(s.count)) != int(np.asarray(adam.count)):
+            raise ValueError(f"schedule count {int(np.asarray(s.count))} differs from "
+                             f"the Adam count {int(np.asarray(adam.count))}")
+    return _train_state(params, adam.count, adam.mu, adam.nu, step, dev)
+
+
+def load_jax_train_checkpoint(path: str, spec: PatchNetSpec, cfg: TrainConfig,
+                              device: str | torch.device | None = None) -> TrainState:
+    """Read a file written by the JAX package's ``trainer.save_checkpoint`` for
+    ``spec`` and ``cfg`` into the port's TrainState on ``device`` (default cuda).
+
+    Its leaves are ``jax.tree.flatten`` of the JAX TrainState: the params (dict keys
+    sorted), Adam's count, mu and nu (each in the params' order), the schedule's
+    count when ``cfg`` has the cosine schedule, then the step. A file whose spec, leaf
+    count or optimizer does not match raises.
+    """
+    cosine = cfg.lr_schedule == "cosine" and cfg.total_steps > 0
+    template = {"clf": {"b": 0, "w": 0},
+                "convs": [{k: 0 for k in (("b", "bn_mean", "bn_var", "w") if cs.bn
+                                          else ("b", "w"))} for cs in spec.convs],
+                "sal": {"b": 0, "w": 0}}
+    paths = leaf_paths(template)
+    n = len(paths)
+    n_leaves = 3 * n + 2 + cosine
+    with open(path, "rb") as f:
+        blob = np.load(f)
+        meta = json.loads(bytes(blob["__meta__"].tobytes()).decode())
+        treedef = meta["treedef"]
+        if (meta["spec"] != spec.name or meta["n_leaves"] != n_leaves
+                or "ScaleByAdamState" not in treedef
+                or ("ScaleByScheduleState" in treedef) != cosine):
+            raise ValueError(f"{path} holds {meta['n_leaves']} leaves of {meta['spec']} "
+                             f"({treedef[:80]}...); expected {n_leaves} of {spec.name}"
+                             f"{' with the cosine schedule' if cosine else ''}")
+        leaves = [blob[f"leaf_{i:05d}"] for i in range(n_leaves)]
+
+    def tree(part):
+        out = {"clf": {}, "convs": [{} for _ in spec.convs], "sal": {}}
+        for (group, i, k), a in zip(paths, part):
+            (out[group][i] if group == "convs" else out[group])[k] = a
+        return out
+
+    if cosine and int(leaves[3 * n + 1]) != int(leaves[n]):
+        raise ValueError(f"{path}: schedule count {int(leaves[3 * n + 1])} differs from "
+                         f"the Adam count {int(leaves[n])}")
+    return _train_state(tree(leaves[:n]), leaves[n], tree(leaves[n + 1:2 * n + 1]),
+                        tree(leaves[2 * n + 1:3 * n + 1]), leaves[-1], resolve_device(device))

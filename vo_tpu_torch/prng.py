@@ -1,10 +1,12 @@
-"""Threefry-2x32 keys, uniform and integer draws, bit-compatible with ``jax.random``.
+"""Threefry-2x32 keys, uniform, normal and integer draws, compatible with ``jax.random``.
 
 The engine draws every RANSAC sample from ``fold_in(key(seed), frame_id)``, then
-``split`` and ``uniform`` (vo_tpu/engine/vo.py, vo_tpu/estimation/pnp.py). These are
-the same functions over torch int64 tensors holding uint32 values, in the bit layout
-of jax's ``jax_threefry_partitionable`` mode (the default of jax 0.9), so the port
-samples exactly the hypotheses the JAX package samples.
+``split`` and ``uniform`` (vo_tpu/engine/vo.py, vo_tpu/estimation/pnp.py); training
+draws its pairs, photometric jitter and initial weights with ``uniform`` over a range
+and ``normal`` (vo_tpu/train/pairs.py, vo_tpu/models/patchnet.py). These are the same
+functions over torch int64 tensors holding uint32 values, in the bit layout of jax's
+``jax_threefry_partitionable`` mode (the default of jax 0.9), so the port samples
+exactly the hypotheses the JAX package samples.
 
 A key is an int64 tensor of shape (..., 2); leading axes batch keys.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -66,14 +69,56 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in fp32 over [0, 1): (...,) + shape."""
+def uniform(k: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in fp32 over [minval,
+    maxval): (...,) + shape.
+
+    jax scales the [0, 1) draw as ``u * (maxval - minval) + minval`` with one
+    rounding (XLA contracts it into a fused multiply-add) and then takes the max with
+    ``minval``; the product of two fp32 values is exact in fp64, so the fp64 sum
+    rounded once to fp32 gives the same bits.
+    """
     n = math.prod(shape)
     hi, lo = _counters(n, k.device)
     b1, b2 = threefry2x32(k[..., 0, None], k[..., 1, None], hi, lo)
     bits = ((b1 ^ b2) >> 9) | 0x3F800000          # below 2**31: exact in int32
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(floats, min=0.0).reshape(k.shape[:-1] + tuple(shape))
+    floats = floats.reshape(k.shape[:-1] + tuple(shape))
+    if (minval, maxval) == (0.0, 1.0):
+        return torch.clamp(floats, min=0.0)
+    lo32, hi32 = (torch.tensor(v, dtype=torch.float32).item() for v in (minval, maxval))
+    span = torch.tensor(hi32, dtype=torch.float32) - torch.tensor(lo32, dtype=torch.float32)
+    scaled = (floats.to(torch.float64) * span.item() + lo32).to(torch.float32)
+    return torch.clamp(scaled, min=lo32)
+
+
+# Giles' single-precision erfinv polynomials, the ones XLA evaluates for
+# ``lax.erf_inv`` on fp32 (torch.erfinv computes another approximation).
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    """fp32 erfinv on (-1, 1) by XLA's polynomials, evaluated in fp32 (Horner). The
+    square root is taken in fp64 and rounded once, which gives the correctly rounded
+    fp32 root that XLA computes (torch's fp32 CPU root is not always)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w.to(torch.float64)).to(torch.float32) - 3.0)
+    p = torch.where(small, _ERFINV_W_LT5[0], _ERFINV_W_GE5[0])
+    for a, b in zip(_ERFINV_W_LT5[1:], _ERFINV_W_GE5[1:]):
+        p = torch.where(small, a, b) + p * w
+    return p * x
+
+
+def normal(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in fp32: ``sqrt(2) * erfinv(u)`` for u
+    uniform on (nextafter(-1, 0), 1); (...,) + shape."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _erfinv(uniform(k, shape, lo, 1.0)) * float(np.float32(np.sqrt(2.0)))
 
 
 _I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
