@@ -104,7 +104,19 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
     jitter, the cosine schedule, batch 8, crop 160, lr 3e-4) for 40 steps with an
     evaluation every 20: one SIMT launch per evaluated pair and none of wgmma, and on
     one evaluated pair the kernel's mutual nearest neighbours, more than 100 of them,
-    equal to ``mutual_nn_match``'s on the same tensors.
+    equal to ``mutual_nn_match``'s on the same tensors;
+15. the distributed layer over a one-rank NCCL group in this process (every collective
+    runs through NCCL on CUDA tensors; the machine has one GPU), the dry run's parts at
+    full size: ``runners.dryrun.inference_rank`` on the first 16 slalom frames (2048
+    keypoints): 15 wgmma launches and none of SIMT, features and matches equal to the
+    same steps with no group; ``bundle_adjust_sharded`` at the production window (64
+    keyframes x 512 observations, 8192 landmarks, 0.5 px noise, 4 iterations): finite,
+    the cost within rtol 1e-4 of ``bundle_adjust`` on the card and the poses within
+    1e-4 of their scale, two solves bit-identical, the time per solve of both, the peak
+    memory and the collectives' calls and bytes per iteration; the data-parallel
+    ``train_step_batch`` at phase 14's full width against the step with no group from
+    the same state and batch (loss within 1e-4 relative, parameters within 2.5 lr, one
+    gradient all-reduce), the ms/step of both and the all-reduces per step.
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
 line before it lists each kernel and shape with its launches, error, times and bound.
@@ -145,12 +157,22 @@ F_LONG = 288           # frames of the cut long run (phase 12): 230 m, a checkpo
 TRAIN_FIXED = 8        # phase 14: steps on one fixed batch, and of each repeat run
 TRAIN_TIMED = 30       # phase 14: timed steps on fresh keys (the first 3 a warm-up)
 PARITY_ARGS = ["--steps", "40", "--eval-every", "20", "--skip-ported"]
+F_DIST = 16            # phase 15: frames of the data-parallel inference
+DIST_REPEATS = 10      # phase 15: timed solves of each form at the production window
+DIST_STEPS = 20        # phase 15: timed training steps of each form
 # Phase 14's bound on a gradient leaf of the card's fp32 step against the same step in
 # fp64, as a share of the leaf's largest |g| (train-mode BatchNorm's backward cancels;
 # max-pool's and the histogram's kinks take the other slope within rounding). The card
 # is held to the CPU in fp64, to 1e-6; the fp32 card-against-CPU distance adds two such
 # errors, the CPU's depending on its thread count, and is printed, not gated.
 TRAIN_GRAD_TOL = 2e-3
+# Phase 15's bound on a gradient leaf of the data-parallel step over one NCCL rank
+# against the step with no group (same share of the leaf's largest |g|). Adam's first
+# step moves every weight by about lr whatever its gradient, so the parameters' 2.5 lr
+# cannot see a zero, doubled or wrong-signed gradient; this bound, 1.0 or more for each
+# of those, does. The card reads 3.6e-6 here (NVIDIA H100 80GB HBM3, PERF.md §6):
+# over one rank the two steps differ only in how the BatchNorm moments are summed.
+DIST_GRAD_TOL = 5e-5
 # The JAX package's MonoVOEngine(MonoVOConfig()) on the first 48 slalom frames, with its
 # own OrbLikeExtractor(max_kp=2048) features, on a CPU (a reference, not a target), as
 # `python tests/refine_reference.py mono 48` prints it.
@@ -1640,23 +1662,10 @@ def _training_phase(card, errs, dev="cuda") -> dict:
         steps[where] = trainer.train_step_batch(trainer.state_to(state0, d, dtype), b_, spec, cfg)
     (g1, gm), (c1, cm) = steps["card"], steps["cpu"]
     loss_rel = abs(float(gm["total"]) - float(cm["total"])) / abs(float(cm["total"]))
-    paths = trainer.leaf_paths(c1.params)
-    bn_bias = {("convs", i, "b") for i, l in enumerate(c1.params["convs"]) if "bn_mean" in l}
-
-    def leaf_errs(got, want):
-        """(error / the leaf's largest |g| (the network's for the BatchNorm'd conv
-        biases, whose gradient is rounding noise), path), largest first: Adam's first
-        moment (0.1 g) of two steps."""
-        a = [t.cpu().double() for t in trainer._leaves(got.opt_state.mu)]
-        b = [t.cpu().double() for t in trainer._leaves(want.opt_state.mu)]
-        net = max(float(t.abs().max()) for t in b)
-        return sorted(((float((x - y).abs().max())
-                        / max(net if p in bn_bias else float(y.abs().max()), 1e-300), p)
-                       for p, x, y in zip(paths, a, b)), reverse=True)
-
-    card_cpu = leaf_errs(g1, c1)
-    card64_cpu64 = leaf_errs(steps["card64"][0], steps["cpu64"][0])
-    card_ref, cpu_ref = leaf_errs(g1, steps["card64"][0]), leaf_errs(c1, steps["card64"][0])
+    card_cpu = _gradient_leaf_errors(g1, c1)
+    card64_cpu64 = _gradient_leaf_errors(steps["card64"][0], steps["cpu64"][0])
+    card_ref = _gradient_leaf_errors(g1, steps["card64"][0])
+    cpu_ref = _gradient_leaf_errors(c1, steps["card64"][0])
     param_err = max(float((a.cpu() - b).abs().max()) for a, b in
                     zip(trainer._leaves(g1.params), trainer._leaves(c1.params)))
     ok = (loss_rel <= 1e-4 and card_ref[0][0] <= TRAIN_GRAD_TOL
@@ -1819,6 +1828,149 @@ def _training_phase(card, errs, dev="cuda") -> dict:
     sub_s["retrain_parity"] = time.perf_counter() - t0
     print("phase 14 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
     return {"launches": counts["simt"], "pairs": n_pairs}
+
+
+def _gradient_leaf_errors(got, want) -> list:
+    """(error / the leaf's largest |g| (the network's for the BatchNorm'd conv biases,
+    whose gradient is rounding noise), path), largest first: Adam's first moment
+    (0.1 g) of two training states one step from the same state."""
+    from vo_tpu_torch.train import trainer
+
+    paths = trainer.leaf_paths(want.params)
+    bn_bias = {("convs", i, "b") for i, l in enumerate(want.params["convs"]) if "bn_mean" in l}
+    a = [t.cpu().double() for t in trainer._leaves(got.opt_state.mu)]
+    b = [t.cpu().double() for t in trainer._leaves(want.opt_state.mu)]
+    net = max(float(t.abs().max()) for t in b)
+    return sorted(((float((x - y).abs().max())
+                    / max(net if p in bn_bias else float(y.abs().max()), 1e-300), p)
+                   for p, x, y in zip(paths, a, b)), reverse=True)
+
+
+def _distributed_phase(card, imgs, deps, errs) -> dict:
+    """Phase 15: the dry run's three parts over a one-rank NCCL group in this process
+    (``parallel.launch.run_one_rank``), at full size. Returns the wgmma launches of the
+    data-parallel inference."""
+    import torch
+
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.ba import BAConfig, bundle_adjust
+    from vo_tpu_torch.ba.distributed import bundle_adjust_sharded
+    from vo_tpu_torch.models.patchnet import FAST_QUAD_L2NET_CONFCFS
+    from vo_tpu_torch.parallel import launch, make_mesh_1d
+    from vo_tpu_torch.port_state import ba_problem_from_numpy
+    from vo_tpu_torch.runners import dryrun
+    from vo_tpu_torch.train import trainer
+    from vo_tpu_torch.train.pairs import synthetic_pair_batch
+
+    dev = torch.device("cuda")
+    sub_s = {}
+
+    # (c) Data-parallel inference on the first F_DIST slalom frames, counted: one wgmma
+    # launch per consecutive pair; then the same steps without a group.
+    t0 = time.perf_counter()
+    _reset_counts()
+    inf = launch.run_one_rank(dryrun.inference_rank, "nccl", "cuda", imgs[:F_DIST],
+                              deps[:F_DIST], K, 2048, 21, 1)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts != {"wgmma": F_DIST - 1, "simt": 0}:
+        raise AssertionError(f"dry-run inference launches {counts}, expected "
+                             f"{F_DIST - 1} wgmma, 0 simt")
+    ref = dryrun.reference_inference(imgs[:F_DIST], deps[:F_DIST], K, 2048, 21, dev)
+    same = all(torch.equal(inf[k], ref[k]) for k in ("kp", "desc", "valid", "mask"))
+    same = same and torch.equal(inf["idx"][inf["mask"]], ref["idx"][ref["mask"]])
+    print(f"distributed [{card}] inference over one NCCL rank, {F_DIST} frames "
+          f"{H}x{W}, 2048 keypoints: {counts['wgmma']} wgmma launches, "
+          f"{int(inf['n_matches'])} matches, equal to one process = {same}")
+    if not same:
+        raise AssertionError("dry-run inference differs from one process")
+    d = inf["desc"].to(torch.bfloat16)
+    errs["wgmma"].append(_check_kernel("dry-run frames 0, 1", d[0].contiguous(),
+                                       d[1].contiguous(), inf["valid"][0].contiguous(),
+                                       inf["valid"][1].contiguous(), True))
+    sub_s["inference"] = time.perf_counter() - t0
+
+    # (a) Sharded BA at the production window against bundle_adjust on the card.
+    t0 = time.perf_counter()
+    P, M, L = dryrun.WINDOW
+    window = dryrun.noisy_problem(P, L, M, seed=2, reach=6.0)
+    it = dryrun.BA_ITERATIONS
+
+    def solve_and_profile(rank):
+        """The solves, then a profile of one solve of each form."""
+        out = dryrun.solve_rank(rank, [(window, "kf", 1, it)], DIST_REPEATS)
+        prob, cfg = ba_problem_from_numpy(window, dev), BAConfig(iterations=it)
+        mesh = make_mesh_1d("kf")
+        out["profiles"] = [_device_profile(fn) for fn in (
+            lambda: bundle_adjust_sharded(prob, mesh, cfg, "kf"),
+            lambda: bundle_adjust(prob, cfg, device=dev))]
+        return out
+
+    ba = launch.run_one_rank(solve_and_profile, "nccl", "cuda")
+    ba = {k[len("case0/"):] if k.startswith("case0/") else k: v for k, v in ba.items()}
+    finite = bool(torch.isfinite(ba["poses"]).all() and torch.isfinite(ba["points"]).all())
+    c, c1 = float(ba["final_cost"]), float(ba["single_final_cost"])
+    cost_rel = abs(c - c1) / abs(c1)
+    pose_err = float((ba["poses"] - ba["single_poses"]).abs().max())
+    pose_tol = 1e-4 * max(float(ba["single_poses"].abs().max()), 1e-6)
+    per_it = dryrun._per_iteration(ba["collectives"], it)
+    ok = finite and cost_rel <= 1e-4 and pose_err <= pose_tol and bool(ba["repeat_equal"])
+    print(f"distributed [{card}] sharded BA over one NCCL rank at P={P}, M={M}, L={L} "
+          f"({it} iterations, 0.5 px noise): cost {c:.6f} vs bundle_adjust {c1:.6f} (rel "
+          f"{cost_rel:.2e}), poses {pose_err:.3e} apart (bound {pose_tol:.3e}), finite "
+          f"{finite}, two solves bit-identical {bool(ba['repeat_equal'])}; "
+          f"{ba['ms_sharded']:.3f} ms per sharded solve, {ba['ms_single']:.3f} ms per "
+          f"bundle_adjust (medians of {DIST_REPEATS}, in turns); peak device memory of a "
+          f"sharded solve {ba['peak_mib']:.1f} MiB above what was held; FLOPs "
+          f"{ba['flops_sharded']:.4g} sharded, {ba['flops_single']:.4g} single; per iteration "
+          + ", ".join(f"{k} x{n:g} {b / 2**10:.1f} KiB" for k, (n, b) in per_it.items())
+          + f" -> {'ok' if ok else 'FAIL'}")
+    for form, (busy, n, top) in zip(("sharded", "bundle_adjust"), ba["profiles"]):
+        if busy is None:
+            print(f"  profile [{card}] {form}: device time not measured (empty trace)")
+        else:
+            print(f"  profile [{card}] {form} solve: device busy {busy:.3f} ms, {n} CUDA "
+                  f"kernels; largest " + ", ".join(f"{name[:60]} x{c} {ms:.3f} ms"
+                                                    for name, c, ms in top[:3]))
+    if not ok:
+        raise AssertionError("the sharded BA over NCCL disagrees with bundle_adjust")
+    sub_s["ba"] = time.perf_counter() - t0
+
+    # (b) The data-parallel training step at full width against the step with no group,
+    # from the same state and batch, under phase 14's gates; then both timed.
+    t0 = time.perf_counter()
+    spec, cfg = FAST_QUAD_L2NET_CONFCFS, trainer.TrainConfig()
+    state = trainer.create_train_state(spec, cfg, device=dev)
+    batch = synthetic_pair_batch(prng.key(2, dev), cfg.batch, cfg.height, cfg.width)
+    leaves = [t.cpu().numpy() for _, t in trainer._state_leaves(state)]
+    dp = launch.run_one_rank(dryrun.train_rank, "nccl", "cuda", spec, cfg, leaves,
+                             tuple(x.cpu().numpy() for x in batch), 1, DIST_STEPS)
+    one, m1 = trainer.train_step_batch(state, batch, spec, cfg)
+    loss_rel = abs(float(dp["total"]) - float(m1["total"])) / abs(float(m1["total"]))
+    params = trainer._leaves(one.params)
+    param_err = max(float((dp[f"state/{i}"] - t).abs().max()) for i, t in enumerate(params))
+    n_leaves = len(trainer._state_leaves(one))
+    grad_errs = _gradient_leaf_errors(
+        trainer.state_from_leaves(one, [dp[f"state/{i}"] for i in range(n_leaves)]), one)
+    reduces = json.loads(dp["all_reduces"])
+    ok = (loss_rel <= 1e-4 and param_err <= 2.5 * cfg.lr and not bool(dp["skipped"])
+          and grad_errs[0][0] <= DIST_GRAD_TOL and reduces["gradients"][0] == 1)
+    print(f"distributed [{card}] data-parallel training step over one NCCL rank "
+          f"({spec.name}, batch {cfg.batch}, {cfg.height}x{cfg.width}): loss "
+          f"{float(dp['total']):.6f} vs {float(m1['total']):.6f} with no group (rel "
+          f"{loss_rel:.2e}), gradient leaves, error / the leaf's largest |g|, largest "
+          f"three: {[(p, f'{e:.2e}') for e, p in grad_errs[:3]]} (bound "
+          f"{DIST_GRAD_TOL:.0e}), parameters {param_err / cfg.lr:.3f} lr apart; "
+          f"{dp['ms_per_step']:.3f} ms/step vs {dp['ms_per_step_local']:.3f} ms/step with no "
+          f"group (medians of {DIST_STEPS}, in turns); all-reduces per step "
+          f"{sum(n for n, _ in reduces.values())}: "
+          + ", ".join(f"{k} x{n} {b / 2**10:.1f} KiB" for k, (n, b) in reduces.items())
+          + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the data-parallel training step disagrees with the plain one")
+    sub_s["train"] = time.perf_counter() - t0
+    print("phase 15 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
+    return {"launches": counts["wgmma"]}
 
 
 def main() -> None:
@@ -2114,6 +2266,11 @@ def _smoke(pool, long_dir) -> None:
     t0 = time.perf_counter()
     training = _training_phase(card, errs)
     phase_s["training"] = time.perf_counter() - t0
+
+    # Phase 15: the distributed layer over one NCCL rank.
+    t0 = time.perf_counter()
+    distributed = _distributed_phase(card, imgs, deps, errs)
+    phase_s["distributed"] = time.perf_counter() - t0
     entries[1]["launches"] += training["launches"]
     entries[1]["launches_by_path"] = {
         "SIFT path (run_offline_vo, 160 frames)": counts_s["simt"],
@@ -2130,7 +2287,9 @@ def _smoke(pool, long_dir) -> None:
                f"oriented BRIEF path (run_offline_vo, {F_TIMED} frames)": fl["oriented"],
                f"mono path (MonoVOEngine, {F_MONO} frames)": mono_launches,
                f"long run (longrun.main: 48 warm-up + {F_LONG} frames, "
-               f"{long['verified']} pair verifications)": long["launches"]}
+               f"{long['verified']} pair verifications)": long["launches"],
+               f"distributed dry run (inference_rank over one NCCL rank, {F_DIST} frames)":
+                   distributed["launches"]}
     entries[0].update(launches=sum(by_path.values()), launches_by_path=by_path)
     for e in entries:
         e["max_abs_err"] = max(errs["wgmma" if "wgmma" in e["name"] else "simt"])

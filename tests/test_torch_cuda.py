@@ -20,7 +20,10 @@ held to its CPU run (fp32 within 1e-4, bf16 at tests/test_torch_r2d2_model.py's
 tolerances), its extraction must repeat bit for bit, and its matcher
 (``ratio_mutual_nn`` at 2048 x 2048 x 128) and a 16-frame R2D2 engine run go through
 the SIMT kernel. A training step on the card is held to its CPU run, two training runs
-repeat bit for bit, and the MMA harness's matches go through the SIMT kernel.
+repeat bit for bit, and the MMA harness's matches go through the SIMT kernel. The
+distributed layer runs over a one-rank NCCL group (the card's machine has one GPU):
+the sharded BA against ``bundle_adjust``, the data-parallel step against the plain
+one, and the dry run's CLI.
 """
 
 import numpy as np
@@ -787,6 +790,23 @@ def _narrow_train(seed=0):
     return spec, trainer.TrainConfig(batch=4, height=96, width=96)
 
 
+def _gradient_leaf_errors(got, want) -> dict:
+    """{path: error / the leaf's largest |g|} of Adam's first moment (0.1 g) of two
+    states one step from the same state; the network's largest |g| for the conv biases
+    that train-mode BatchNorm follows, whose gradient is rounding noise. Leaves with no
+    gradient are left out."""
+    from vo_tpu_torch.train import trainer
+
+    params = want.params
+    bn = {("convs", i, "b") for i, l in enumerate(params["convs"]) if "bn_mean" in l}
+    mu_g = [t.cpu() for t in trainer._leaves(got.opt_state.mu)]
+    mu_w = [t.cpu() for t in trainer._leaves(want.opt_state.mu)]
+    net = max(float(m.abs().max()) for m in mu_w)
+    return {p: float((a - b).abs().max()) / (net if p in bn else float(b.abs().max()))
+            for p, a, b in zip(trainer.leaf_paths(params), mu_g, mu_w)
+            if float(b.abs().max()) > 0}
+
+
 @pytest.mark.cuda
 def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     """One ``train_step_batch`` from the same state and batch. In fp64 the card's
@@ -809,13 +829,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
         return trainer.train_step_batch(trainer.state_to(state, device, dtype), b, spec, cfg)
 
     (g64, _), (c64, _) = step(cuda_device, torch.float64), step("cpu", torch.float64)
-    bn = {("convs", i, "b") for i, l in enumerate(state.params["convs"]) if "bn_mean" in l}
-    mu_g = [t.cpu() for t in trainer._leaves(g64.opt_state.mu)]
-    mu_c = trainer._leaves(c64.opt_state.mu)
-    net = max(float(m.abs().max()) for m in mu_c)
-    errs = {p: float((a - b).abs().max()) / (net if p in bn else float(b.abs().max()))
-            for p, a, b in zip(trainer.leaf_paths(state.params), mu_g, mu_c)
-            if float(b.abs().max()) > 0}
+    errs = _gradient_leaf_errors(g64, c64)
     assert max(errs.values()) <= 1e-6, sorted(errs.items(), key=lambda kv: -kv[1])[:3]
 
     (g1, gm), (c1, cm) = step(cuda_device, torch.float32), step("cpu", torch.float32)
@@ -860,3 +874,118 @@ def test_mma_takes_the_simt_kernel(cuda_device):
     ref = mutual_nn_match(a, b, va, vb, threshold=0.9)
     assert np.array_equal(mask, ref.mask.cpu().numpy()) and mask.sum() > 100
     assert np.array_equal(idx[mask], ref.idx.cpu().numpy()[mask])
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_sharded_ba_matches_bundle_adjust(cuda_device):
+    """``bundle_adjust_sharded`` over a one-rank NCCL group (every collective on CUDA
+    tensors through NCCL) against ``bundle_adjust`` on the card within rtol 1e-4, and
+    repeatable bit for bit."""
+    from vo_tpu_torch.ba import BAConfig, bundle_adjust
+    from vo_tpu_torch.ba.distributed import bundle_adjust_sharded
+    from vo_tpu_torch.parallel import launch, make_mesh_1d
+    from vo_tpu_torch.port_state import ba_problem_from_numpy
+
+    prob = ba_problem_from_numpy(_ba_arrays(np.random.default_rng(85), P=7), cuda_device)
+
+    def solve(rank):
+        mesh = make_mesh_1d("kf")
+        return [bundle_adjust_sharded(prob, mesh, BAConfig(), "kf") for _ in range(2)]
+
+    (p1, pt1, i1), (p2, pt2, i2) = launch.run_one_rank(solve, "nccl", "cuda")
+    ref = bundle_adjust(prob, BAConfig(), device=cuda_device)
+    assert p1.device.type == "cuda"
+    for got, want in zip((p1, pt1, i1["costs"], i1["final_cost"]),
+                         (ref[0], ref[1], ref[2]["costs"], ref[2]["final_cost"])):
+        _close(got, want)
+    assert torch.equal(p1, p2) and torch.equal(pt1, pt2) and torch.equal(i1["costs"], i2["costs"])
+
+
+# The data-parallel step over one NCCL rank against the plain step: the bound on a
+# gradient leaf, as a share of its largest |g| (the card reads 2.4e-6, PERF.md §6). A
+# zero, doubled or wrong-signed gradient is 1.0 or more.
+DP_GRAD_TOL = 5e-5
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_training_step_matches_the_plain_step(cuda_device):
+    """The data-parallel ``train_step_batch`` over a one-rank NCCL group (BatchNorm
+    moments, the gradient and the metrics through NCCL) against the step with no
+    group: the loss within 1e-4 relative, each gradient leaf (Adam's first moment) within
+    DP_GRAD_TOL of its scale, the parameters within 2.5 lr."""
+    import torch.distributed as dist
+
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.parallel import launch
+    from vo_tpu_torch.train import trainer
+    from vo_tpu_torch.train.pairs import synthetic_pair_batch
+
+    spec, cfg = _narrow_train()
+    state = trainer.create_train_state(spec, cfg, device=cuda_device)
+    batch = synthetic_pair_batch(prng.key(3, cuda_device), cfg.batch, cfg.height, cfg.width)
+    dp, dm = launch.run_one_rank(
+        lambda rank: trainer.train_step_batch(state, batch, spec, cfg,
+                                              group=dist.group.WORLD), "nccl", "cuda")
+    one, om = trainer.train_step_batch(state, batch, spec, cfg)
+    assert float(dm["total"]) == pytest.approx(float(om["total"]), rel=1e-4)
+    errs = _gradient_leaf_errors(dp, one)
+    print(f"worst gradient leaves: {sorted(errs.items(), key=lambda kv: -kv[1])[:3]}")
+    assert max(errs.values()) <= DP_GRAD_TOL
+    for a, b in zip(trainer._leaves(dp.params), trainer._leaves(one.params)):
+        assert float((a - b).abs().max()) <= 2.5 * cfg.lr
+
+
+@pytest.mark.cuda
+def test_dryrun_cli_over_one_nccl_rank(cuda_device, tmp_path):
+    """``python -m vo_tpu_torch.runners.dryrun --nprocs 1 --backend nccl`` as a user
+    runs it: exit 0 and a report from the card."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    out = tmp_path / "dryrun.json"
+    root = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-m", "vo_tpu_torch.runners.dryrun", "--nprocs",
+                           "1", "--backend", "nccl", "--out", str(out)],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    report = json.loads(out.read_text())
+    assert report["device"].startswith("cuda") and report["backend"] == "nccl"
+    assert report["ba_window"]["final_cost"] == pytest.approx(
+        report["ba_window"]["final_cost_one"], rel=1e-4)
+
+
+_TWO_RANKS_ON_ONE_GPU = """
+import os, sys, tempfile
+import torch, torch.distributed as dist, torch.multiprocessing as mp
+
+
+def rank_main(rank, path):
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + path, rank=rank, world_size=2)
+    try:
+        dist.all_reduce(torch.ones(4, device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(rank_main, args=(os.path.join(tempfile.mkdtemp(), "store"),), nprocs=2)
+"""
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_on_one_gpu(cuda_device, tmp_path):
+    """Why the card runs the distributed code over one rank: NCCL refuses a
+    communicator whose ranks share a GPU, at the first collective."""
+    import subprocess
+    import sys
+
+    script = tmp_path / "two_ranks.py"
+    script.write_text(_TWO_RANKS_ON_ONE_GPU)
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "Duplicate GPU detected" in proc.stdout + proc.stderr

@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "models/multiscale", "runners/extract", "utils/viz", "evalkit/plotting",
         "train/__init__", "train/pairs", "train/losses", "train/trainer", "train/datasets",
         "runners/train_r2d2", "runners/retrain_parity", "evalkit/mma", "utils/seg",
-        "utils/profiling", "utils/debug", "prng", "models/patchnet", "port_state")} <= names
+        "utils/profiling", "utils/debug", "prng", "models/patchnet", "port_state",
+        "parallel/__init__", "parallel/mesh", "parallel/comm", "parallel/launch",
+        "ba/distributed", "runners/dryrun")} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -76,6 +78,20 @@ def test_streaming_online_and_cli_raise_without_gpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic_demo.main(["--frames", "2"])
     assert OnlineVO(K, device="cpu").device.type == "cpu"
+
+
+def test_distributed_entry_points_raise_without_gpu(no_cuda):
+    """The dry run and the launcher default to NCCL on the card, and raise before
+    starting a process without one."""
+    from vo_tpu_torch.parallel import launch
+    from vo_tpu_torch.runners import dryrun
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--nprocs", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.spawn(print, 2, "nccl", "cuda")
 
 
 def test_multiscale_extractor_gpu_default_and_unported_options(no_cuda):
@@ -280,3 +296,13 @@ def test_geometry_precision_flags_set(no_cuda):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("x", [np.float32(3.5), np.array(7, np.int32), [[1.0, 2.0]],
+                               np.arange(6.0).reshape(2, 3)[:, ::2]])
+def test_to_device_keeps_the_shape(x):
+    """A 0-d array stays 0-d (a train state's counts are); strided views are copied."""
+    from vo_tpu_torch.device import to_device
+
+    t = to_device(x, torch.device("cpu"))
+    assert t.shape == np.shape(x) and np.array_equal(t.numpy(), np.asarray(x))

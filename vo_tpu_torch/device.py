@@ -34,9 +34,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
     """A tensor on ``device`` from a tensor, a numpy array or a nested list (no copy
-    when it is already there in that dtype)."""
+    when it is already there in that dtype), of the same shape: a 0-d array stays 0-d
+    (``np.ascontiguousarray`` alone returns at least one dimension)."""
     if not isinstance(x, torch.Tensor):
-        a = np.ascontiguousarray(x)
+        a = np.ascontiguousarray(x).reshape(np.shape(x))
         x = torch.from_numpy(a if a.flags.writeable else a.copy())
     return x.to(device=device, dtype=dtype)
 

@@ -25,11 +25,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from vo_tpu_torch import prng
 from vo_tpu_torch.ops.image import resize_bilinear
+from vo_tpu_torch.parallel import comm
 
 BN_EPS = 1e-5
 
@@ -202,8 +204,23 @@ def _softplus_ratio(x: torch.Tensor) -> torch.Tensor:
     return s / (1.0 + s)
 
 
+def _batch_moments(xf: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and population variance of NCHW ``xf`` over (N, H, W): this
+    batch's, or with a ``group`` the whole batch's across its ranks (each holding an
+    equal share), through the differentiable all-reduce: the sum over the ranks, then
+    the squared deviations from that mean, as GSPMD computes ``jnp.mean``/``jnp.var``
+    over a sharded batch."""
+    if group is None:
+        mean = torch.mean(xf, dim=(0, 2, 3))
+        return mean, torch.mean(torch.square(xf - mean[:, None, None]), dim=(0, 2, 3))
+    n = xf.shape[0] * xf.shape[2] * xf.shape[3] * dist.get_world_size(group)
+    mean = comm.all_reduce_sum(torch.sum(xf, dim=(0, 2, 3)), group, "BatchNorm sum") / n
+    dev2 = torch.sum(torch.square(xf - mean[:, None, None]), dim=(0, 2, 3))
+    return mean, comm.all_reduce_sum(dev2, group, "BatchNorm squares") / n
+
+
 def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor,
-                   compute_dtype=torch.float32, train: bool = False) -> dict:
+                   compute_dtype=torch.float32, train: bool = False, group=None) -> dict:
     """Forward pass.
 
     Args:
@@ -218,6 +235,8 @@ def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor,
         population variance, as ``jnp.var``) instead of the running statistics, and
         adds ``bn_stats``, the per-layer (mean, var), to the output for
         ``update_bn_running_stats``.
+      group: in train mode, a ``torch.distributed`` group over which the batch is
+        split in equal shares: the moments are then the whole batch's.
     Returns:
       dict(descriptors (B, H', W', D) L2-normalised fp32, reliability (B, H', W'),
            repeatability (B, H', W')[, bn_stats]).
@@ -234,8 +253,7 @@ def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor,
         if cs.bn:
             xf = x.to(acc)
             if train:
-                mean = torch.mean(xf, dim=(0, 2, 3))
-                var = torch.mean(torch.square(xf - mean[:, None, None]), dim=(0, 2, 3))
+                mean, var = _batch_moments(xf, group)
                 bn_stats.append((mean, var))
             else:
                 mean, var = layer["bn_mean"], layer["bn_var"]

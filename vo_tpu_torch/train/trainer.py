@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vo_tpu_torch import prng
 from vo_tpu_torch.device import resolve_device
@@ -38,6 +39,7 @@ from vo_tpu_torch.models.patchnet import (
     params_to,
     update_bn_running_stats,
 )
+from vo_tpu_torch.parallel import comm
 from vo_tpu_torch.train.losses import r2d2_loss
 from vo_tpu_torch.train.pairs import synthetic_pair_batch
 
@@ -226,14 +228,28 @@ def train_step(state: TrainState, key: torch.Tensor, spec: PatchNetSpec, cfg: Tr
     return train_step_batch(state, batch, spec, cfg)
 
 
-def train_step_batch(state: TrainState, batch, spec: PatchNetSpec, cfg: TrainConfig):
+def train_step_batch(state: TrainState, batch, spec: PatchNetSpec, cfg: TrainConfig,
+                     group=None):
     """One step on an explicit (img1, img2, flow, mask) batch on the state's device.
 
     Returns (new_state, metrics: cosim, peaky, ap, total and skipped, 0-d tensors).
     NaN-guarded: a non-finite loss keeps the parameters and optimizer state as they
     were (selected on the device, no host sync), and the step still counts.
+
+    With a ``torch.distributed`` ``group`` of D ranks this is the data-parallel step,
+    the counterpart of the JAX step on a batch sharded over ``data``: each rank passes
+    its cfg.batch / D pairs and the same state. BatchNorm normalises with the whole
+    batch's moments; the loss, a mean of per-image means over equal counts, is the
+    mean of the ranks' losses, so the gradient is the ranks' gradients summed, in one
+    all-reduce of one flat buffer, over D. The metrics and the NaN guard read the
+    global loss and the running statistics fold in the global moments, so every rank
+    applies the same update.
     """
     img1, img2, flow, mask = batch
+    n_ranks = 1 if group is None else dist.get_world_size(group)
+    if group is not None and img1.shape[0] * n_ranks != cfg.batch:
+        raise ValueError(f"a batch of {cfg.batch} over {n_ranks} ranks: each rank must "
+                         f"hold {cfg.batch / n_ranks} pairs, this one holds {img1.shape[0]}")
     paths = leaf_paths(state.params)
     leaves = _leaves(state.params)
     trainable = [i for i, (_, _, k) in enumerate(paths) if not k.startswith("bn_")]
@@ -241,12 +257,23 @@ def train_step_batch(state: TrainState, batch, spec: PatchNetSpec, cfg: TrainCon
         leaves_g = [t.detach().requires_grad_(i in trainable) for i, t in enumerate(leaves)]
         params = _rebuild(state.params, leaves_g)
         dt = leaves[0].dtype                 # the step runs in its parameters' dtype
-        out1 = apply_patchnet(params, spec, _normalize(img1.to(dt)), dt, train=True)
-        out2 = apply_patchnet(params, spec, _normalize(img2.to(dt)), dt, train=True)
+        out1 = apply_patchnet(params, spec, _normalize(img1.to(dt)), dt, train=True,
+                              group=group)
+        out2 = apply_patchnet(params, spec, _normalize(img2.to(dt)), dt, train=True,
+                              group=group)
         total, metrics = r2d2_loss(out1, out2, flow, mask, w_cosim=cfg.w_cosim,
                                    w_peaky=cfg.w_peaky, w_ap=cfg.w_ap,
                                    stride=cfg.sample_stride, sampler=cfg.sampler)
         g = torch.autograd.grad(total, [leaves_g[i] for i in trainable])
+    if group is not None:
+        flat = comm.all_reduce(torch.cat([gi.reshape(-1) for gi in g]), group, "gradients")
+        g = torch.split(flat / n_ranks, [gi.numel() for gi in g])
+        g = [gi.view_as(ref) for gi, ref in zip(g, [leaves[i] for i in trainable])]
+        names = list(metrics)
+        means = comm.all_reduce(torch.stack([metrics[k].detach() for k in names]), group,
+                                "metrics") / n_ranks
+        metrics = dict(zip(names, means))
+        total = metrics["total"]
     grads = [torch.zeros_like(t) for t in leaves]
     for i, gi in zip(trainable, g):
         grads[i] = gi
@@ -310,6 +337,12 @@ def load_checkpoint(path: str, template: TrainState) -> TrainState:
                              f"({meta['spec']}), the template has {len(mine)}")
         leaves = [torch.from_numpy(blob[f"leaf_{i:05d}"]).to(t.device)
                   for i, (_, t) in enumerate(named)]
+    return state_from_leaves(template, leaves)
+
+
+def state_from_leaves(template: TrainState, leaves: list) -> TrainState:
+    """A state of the template's layout holding ``leaves`` (tensors in
+    ``_state_leaves`` order)."""
     n = len(leaf_paths(template.params))
     params = _rebuild(template.params, leaves[:n])
     count = leaves[n]
