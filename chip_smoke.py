@@ -14,7 +14,7 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    calls in a row that grow and shrink the cached scratch;
 4. main path: the port's ``run_offline_vo`` on the 160-frame 376 x 1232 synthetic
    RGB-D slalom (2048 keypoints, 512 hypotheses); asserts the trajectory gate, one
-   wgmma launch per tracked frame, and identical poses from the plain matcher (first 48
+   wgmma launch per tracked frame, and identical poses from the plain matcher (first 32
    frames);
 5. float-mode path: the engine with the ``ratio_mutual_nn`` matcher on the first 16
    frames' descriptors as fp32 unit vectors (+-1/16); asserts one SIMT launch per
@@ -22,8 +22,8 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
 6. SIFT-config path: ``run_offline_vo`` on the same frames with the multi-scale DoG +
    oriented gradhist extractor and the ``ratio_float`` matcher (``bench.py:337-386``);
    asserts the gate and one SIMT launch per tracked frame; the plain-matcher engine on
-   the first 48 frames' features passes the gate too; times extraction and the engine;
-7. timing: extraction and the engine over the first 32 frames, and the kernels
+   the first 32 frames' features passes the gate too; times extraction and the engine;
+7. timing: extraction and the engine over the first 16 frames, and the kernels
    (wgmma at 2048 x 2048 x 256 bf16;
    SIMT at 2048 x 2048 x 128 on the SIFT frames' descriptors and at 2048 x 2048 x 256
    on the main path's as fp32) against their plain versions, a library yardstick and
@@ -33,14 +33,14 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    io-included format (gray PNG + ``<u2`` millimetre npy, ``bench.py:81-102``); the
    ``vo_run`` CLI on them (native loader, sparse depth transfer, ``--eval``): the
    gate, one wgmma launch per tracked frame, and ``run_offline_vo``'s poses on the
-   first 48 decoded frames; a ``--limit 32`` run's checkpoint resumed to frame 64 and
-   the uninterrupted poses; the SIFT and SURF configs through the CLI (48 frames each,
+   first 32 decoded frames; a ``--limit 32`` run's checkpoint resumed to frame 64 and
+   the uninterrupted poses; the SIFT and SURF configs through the CLI (32 frames each,
    SIMT launches only); ``OnlineVO`` on 16 frames against ``run_offline_vo``; then,
-   over the first 32 frames, each streaming pass (2 sparse, 1 float32, 1 uint16mm)
-   followed by a pass of the in-memory extract + engine, the loader's decode-only
-   ceiling, and a profile of two chunks of the sparse stream;
-9. refinement: the 240-frame loop workload of ``bench.py:478-576`` (rendered in the
-   same pool behind the slalom) through ``run_offline_vo``; ``refine_full``'s adaptive
+   over the first 16 frames, one streaming pass per depth transfer (sparse, float32,
+   uint16mm), each followed by a pass of the in-memory extract + engine, the loader's
+   decode-only ceiling, and a profile of one chunk of the sparse stream;
+9. refinement: the 240-frame loop workload of ``bench.py:478-576`` through
+   ``run_offline_vo``; ``refine_full``'s adaptive
    branch cold and warm with bench.py's gate (``refined_better`` printed, its ATE
    clause not enforced: see ``_refine_gate``), one wgmma launch per
    pair verification and none of the SIMT kernel; a profile of a warm call; the wgmma
@@ -56,12 +56,12 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
     bench.py's 0.54 m baseline (``stereo_extract_and_backproject`` in batches of 8,
     ``bench.py:388-436``): the gate, one wgmma launch per tracked frame, the stereo
     depths against the rendered depth (tests/test_stereo.py's limits), identical poses
-    from the plain matcher on 48 frames, timing and profiles of the extraction and of
+    from the plain matcher on 32 frames, timing and profiles of the extraction and of
     the disparity scan; bench's adversarial workload (``bench.py:438-476``: textureless
     frames, depth dropout, a moving occluder) through ``run_offline_vo``: the gate, an
     accept rate inside (0.8, 1.0), 159 wgmma launches, identical plain-matcher poses on
     frames 32-95; SURF (``response="hessian"``, ``descriptor="surf"``, ``ratio_float``)
-    and oriented BRIEF on the first 48 frames: the gate, 47 SIMT or wgmma launches,
+    and oriented BRIEF on the first 32 frames: the gate, 31 SIMT or wgmma launches,
     (2048, 64) bf16 SURF descriptors, the SIMT kernel against its plain version at
     2048 x 2048 x 64, identical plain-matcher poses for oriented BRIEF;
 11. mono and homography: ``MonoVOEngine(MonoVOConfig())`` on the main path's features
@@ -71,17 +71,17 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
     frames; its time per frame, a profile and the host syncs per frame;
     ``homography_ransac`` on a plane-induced set with 30 % outliers on the card against
     the CPU and the true H;
-12. the long run, cut to 288 frames: the long-run world rendered in the same pool
-    (behind the right eye) into a git-ignored directory, then
+12. the long run, cut to 288 frames: the long-run world written as
+    ``runners/longrun.py`` writes it into a git-ignored directory, then
     ``vo_tpu_torch.runners.longrun.main`` on it: the trajectory gate, the checkpoint,
     finite refined poses, refinement no worse than 1.05x the odometry, and one wgmma
     launch per tracked frame of the warm-up and the run and per pair verification;
 13. R2D2: the Fast network at full width with seeded weights (the published ones are
     not in the repository; thresholds 0, since seeded heads clear the published ones
-    rarely) on the first 48 slalom frames in batches of 16: extraction timed and
+    rarely) on the first 32 slalom frames in batches of 16: extraction timed and
     profiled with a bf16 and an fp32 trunk, with its peak device memory; the network
     on the card against the CPU on one frame; two extractions bit-identical; the engine
-    with ``ratio_mutual_nn`` at 0.9 (``bench.py:307-309``): 47 SIMT launches and none
+    with ``ratio_mutual_nn`` at 0.9 (``bench.py:307-309``): 31 SIMT launches and none
     of wgmma, finite poses, the plain matcher's poses on 16 frames (the first
     difference printed), the kernel against its plain version on frames 0 and 1; a
     checkpoint in the published layout read back to the same bits; the multiscale
@@ -118,6 +118,16 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
     the same state and batch (loss within 1e-4 relative, parameters within 2.5 lr, one
     gradient all-reduce), the ms/step of both and the all-reduces per step.
 
+Every workload is rendered on the card (``_render_on_card``: the numpy renderer of
+``utils/synthetic.py`` op for op in float64, held to it on the first and last frame of
+each). Phases 9, 12, 11 and 13, in that order, run in a second process with its own
+CUDA context on the same card, beside phases 3-8, 10 and 14 of the first: the engines
+are paced by the host and leave the card idle most of the time, so two of them share
+it, and the smoke ends well inside its time limit. The second process's lines are
+printed after phase 14; the times of the phases are taken with both processes on the
+card (``runners/bench.py`` times the workloads alone). The kernels' own times (phase
+7) are taken after the second process has ended, and phase 15 runs alone.
+
 The last line of standard output is one JSON object with ``ok`` and the device; the
 line before it lists each kernel and shape with its launches, error, times and bound.
 """
@@ -147,8 +157,8 @@ LOOP = dict(out_frames=64, turn_frames=56, step=0.8, turn_step=0.22)
 # enough that the median loop rotation residual exceeds refine_full's 1 deg threshold.
 LOOP_NOISE_RAD, LOOP_NOISE_M = 0.0015, 0.01
 N_PASSES = 2           # timed passes per path (median)
-F_TIMED = 48           # frames of the SURF, oriented and mono paths and of the plain-matcher runs
-F_PASS = 32            # frames of each timed pass (whole batches of 16)
+F_TIMED = 32           # frames of the SURF, oriented and R2D2 paths and of the plain-matcher runs
+F_PASS = 16            # frames of each timed pass (whole batches of 16)
 F_PART = 32            # the CLI's interrupted run stops here; the resume runs to 2 * F_PART
 BASELINE_M = 0.54      # stereo baseline of bench.py's true-stereo workload (:397)
 STEREO_BATCH = 8       # its extraction batch (:411)
@@ -192,6 +202,104 @@ def _build_dir() -> str:
     d = os.path.join(os.path.dirname(os.path.abspath(vo_tpu_torch.__file__)), "_build")
     os.makedirs(d, exist_ok=True)
     return d
+
+
+def _texture_on_card(plane, u, v, sigma):
+    """``Plane.texture`` of ``vo_tpu_torch/utils/synthetic.py``, op for op in float64."""
+    import torch
+
+    rng = np.random.default_rng(plane.tex_seed)
+    val = torch.zeros_like(u)
+    for _ in range(40):
+        w = rng.uniform(0.3, 6.0, 2)
+        phase = rng.uniform(0, 2 * np.pi)
+        amp = rng.uniform(5, 25)
+        val = val + amp * torch.sin(float(w[0]) * u + float(w[1]) * v + float(phase))
+    if plane.fine_amp > 0.0:
+        live = sigma < 0.15
+        if bool(live.any()):
+            us, vs, ss = u[live], v[live], sigma[live]
+            fine = torch.zeros_like(us)
+            for _ in range(16):
+                w = np.exp(rng.uniform(np.log(20.0), np.log(300.0), 2))
+                phase = rng.uniform(0, 2 * np.pi)
+                amp = rng.uniform(4, 12) * plane.fine_amp
+                att = torch.exp(float(-0.5 * (w @ w)) * ss * ss)
+                fine = fine + amp * att * torch.sin(float(w[0]) * us + float(w[1]) * vs
+                                                    + float(phase))
+            val[live] += fine
+    return 128.0 + val * 0.45
+
+
+def _render_on_card(poses, world=None, max_depth=260.0, batch=16, dev="cuda"):
+    """``render_rgbd`` of ``vo_tpu_torch/utils/synthetic.py`` (numpy, float64, one frame
+    per call) op for op in torch float64 on the card, ``batch`` frames per call: the
+    (F, H, W) float32 images and depths of camera-to-world ``poses`` (F, 4, 4), on the
+    host. The frames are the numpy renderer's to the last bit on a CPU; ``_hold_render``
+    holds the card's to it. A pool of CPU processes takes minutes for the ~900 frames
+    of the workloads and slows the engines beside it; the card takes seconds."""
+    import torch
+
+    from vo_tpu_torch.utils.synthetic import _plane_axes, default_world
+
+    if world is None:
+        world = default_world()
+    f64 = dict(dtype=torch.float64, device=dev)
+    ys, xs = torch.meshgrid(torch.arange(H, **f64), torch.arange(W, **f64), indexing="ij")
+    pix = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1)
+    dirs_cam = pix @ torch.as_tensor(np.linalg.inv(K).T, **f64)
+    fx = float(K[0, 0])
+    imgs, deps = [], []
+    for s in range(0, len(poses), batch):
+        T = torch.as_tensor(np.asarray(poses[s:s + batch], np.float64), **f64)
+        dirs_w = dirs_cam[None] @ T[:, None, :3, :3].transpose(-1, -2)   # (B, H, W, 3)
+        o = T[:, None, None, :3, 3]
+        depth = torch.full(dirs_w.shape[:3], float("inf"), **f64)
+        img = torch.full(dirs_w.shape[:3], 40.0, **f64)
+        dir_norm = torch.linalg.vector_norm(dirs_w, dim=-1)
+        for pl in world:
+            n, p0 = torch.as_tensor(pl.n, **f64), torch.as_tensor(pl.p0, **f64)
+            denom = dirs_w @ n
+            denom = torch.where(denom.abs() < 1e-9, 1e-9, denom)
+            t = ((p0 - o) @ n) / denom
+            hit = (t > 0.1) & (t < max_depth) & (t < depth)
+            X = o + t[..., None] * dirs_w
+            ax_u, ax_v = _plane_axes(pl.n)
+            u = (X - p0) @ torch.as_tensor(ax_u, **f64)
+            v = (X - p0) @ torch.as_tensor(ax_v, **f64)
+            cos_inc = torch.clamp(denom.abs() / dir_norm, 0.2, 1.0)
+            sigma = t.abs() * dir_norm / fx / cos_inc
+            tex = _texture_on_card(pl, u, v, sigma)
+            img = torch.where(hit, tex, img)
+            depth = torch.where(hit, t, depth)
+        depth = torch.where(torch.isinf(depth), 0.0, depth)
+        imgs.append(img.clamp(0, 255).float().cpu().numpy())
+        deps.append(depth.float().cpu().numpy())
+    return np.concatenate(imgs), np.concatenate(deps)
+
+
+def _hold_render(name, poses, imgs, deps, world=None, max_depth=260.0) -> None:
+    """The card's frames against ``render_rgbd`` (numpy) on the first and last pose, and
+    every frame's depth-valid share above 0.5 (bench.py's check). A pixel may differ by
+    the last bits of the card's float64 ``sin`` and ``exp``: at most 1e-5 of the pixels
+    may differ by more than 1e-3 gray levels or 1e-4 m."""
+    from vo_tpu_torch.utils.synthetic import depth_valid_fraction, render_rgbd
+
+    dvf = depth_valid_fraction(deps)
+    if float(dvf.min()) <= 0.5:
+        raise AssertionError(f"{name}: degenerate workload, depth-valid fraction "
+                             f"{dvf.min():.3f}")
+    worst = []
+    for i in (0, len(poses) - 1):
+        img, dep = render_rgbd(poses[i], K, H, W, world, max_depth)
+        di, dd = np.abs(imgs[i] - img), np.abs(deps[i] - dep)
+        worst.append((int(((di > 0) | (dd > 0)).sum()), float(di.max()), float(dd.max()),
+                      float(((di > 1e-3) | (dd > 1e-4)).mean())))
+    print(f"render [{name}]: {len(poses)} frames {H}x{W} on the card; against the numpy "
+          f"renderer, frames 0 and {len(poses) - 1}: (pixels differing, largest image and "
+          f"depth difference, share beyond 1e-3 / 1e-4) {worst}")
+    if max(w[3] for w in worst) > 1e-5:
+        raise AssertionError(f"{name}: the card's frames differ from the numpy renderer's")
 
 
 def _card() -> str:
@@ -582,11 +690,11 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         sift_yaml, _ = yaml("sift", "feature_extractor: sift\noctaves: 4\noriented: true")
         _reset_counts()
         sres = vo_run.run(["--config", sift_yaml, "--depth-transfer", "float32",
-                           "--limit", "48"])
+                           "--limit", str(m)])
         counts_s = _counts()
-        print(f"CLI, SIFT config, 48 frames: launches {counts_s}, accept "
+        print(f"CLI, SIFT config, {m} frames: launches {counts_s}, accept "
               f"{float(np.mean(sres.diag.accepted)):.3f}")
-        if (counts_s != {"wgmma": 0, "simt": 47} or sres.poses.shape != (48, 4, 4)
+        if (counts_s != {"wgmma": 0, "simt": m - 1} or sres.poses.shape != (m, 4, 4)
                 or not np.isfinite(sres.poses).all()):
             raise AssertionError("the SIFT config through the CLI failed")
 
@@ -594,12 +702,12 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         surf_yaml, _ = yaml("surf", "feature_extractor: surf")
         _reset_counts()
         ures = vo_run.run(["--config", surf_yaml, "--depth-transfer", "float32",
-                           "--limit", "48"])
+                           "--limit", str(m)])
         surf_counts = _counts()
-        print(f"CLI, SURF config, 48 frames: launches {surf_counts}, accept "
+        print(f"CLI, SURF config, {m} frames: launches {surf_counts}, accept "
               f"{float(np.mean(ures.diag.accepted)):.3f}, final drift "
-              f"{float(np.linalg.norm(ures.poses[-1, :3, 3] - gt[47, :3, 3])):.3f} m")
-        if (surf_counts != {"wgmma": 0, "simt": 47} or ures.poses.shape != (48, 4, 4)
+              f"{float(np.linalg.norm(ures.poses[-1, :3, 3] - gt[m - 1, :3, 3])):.3f} m")
+        if (surf_counts != {"wgmma": 0, "simt": m - 1} or ures.poses.shape != (m, 4, 4)
                 or not np.isfinite(ures.poses).all() or np.mean(ures.diag.accepted) <= 0.8):
             raise AssertionError("the SURF config through the CLI failed")
 
@@ -645,7 +753,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         gray_d = torch.from_numpy(gray[:n_t]).cuda()
         metres_d = torch.from_numpy(metres[:n_t]).cuda()
         pairs: dict = {}   # mode -> [(streaming stats, in-memory extract ms, engine ms)]
-        for i, mode in enumerate(["sparse"] * N_PASSES + ["float32", "uint16mm"]):
+        for i, mode in enumerate(["sparse", "float32", "uint16mm"]):
             dt, st = stream(mode, n_t)
             st["ms"] = _ms_per_frame(dt, n_t)
             _, _, (ex_ms,), (en_ms,), _ = _timed_passes(
@@ -687,9 +795,8 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
 
         t0 = time.perf_counter()
         sparse_ms = float(np.median([st["ms"] for st, _, _ in pairs["sparse"]]))
-        _profile_lines(card, "streaming sparse, 2 chunks",
-                       lambda: stream("sparse", 2 * EXTRACT_BATCH),
-                       2 * EXTRACT_BATCH, sparse_ms)
+        _profile_lines(card, "streaming sparse, 1 chunk",
+                       lambda: stream("sparse", EXTRACT_BATCH), EXTRACT_BATCH, sparse_ms)
         sub_s["profile"] = time.perf_counter() - t0
         print("phase 8 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sub_s.items()))
         return surf_counts["simt"]
@@ -865,7 +972,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
                              akp3d[window], Kd, wposes, dev)
     sub_s["adversarial"] = time.perf_counter() - t0
 
-    # SURF (box-filter Hessian + SURF-64, ratio_float at 0.85) over the first 48 frames.
+    # SURF (box-filter Hessian + SURF-64, ratio_float at 0.85) over the first F_TIMED.
     t0 = time.perf_counter()
     m = F_TIMED
     surf = OrbLikeExtractor(max_kp=2048, response="hessian", descriptor="surf")
@@ -898,7 +1005,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
     errs["simt"].append(_check_kernel("SURF path frames 0, 1", *surf01, False))
     sub_s["surf"] = time.perf_counter() - t0
 
-    # Oriented BRIEF (rotation-steered patch BRIEF, ratio_binary) over the first 48.
+    # Oriented BRIEF (rotation-steered patch BRIEF, ratio_binary) over the first F_TIMED.
     t0 = time.perf_counter()
     oriented = OrbLikeExtractor(max_kp=2048, oriented=True)
     _reset_counts()
@@ -984,7 +1091,7 @@ def _drifted(gt, seed=8214):
     return noisy
 
 
-def _refinement_phase(card, frames, cfg, extractor, errs) -> dict:
+def _refinement_phase(card, imgs, deps, cfg, extractor, errs) -> dict:
     """Phase 9: refinement on the loop workload. Returns the wgmma launches of the
     counted ``refine_full`` run and of the CLI's refinement."""
     import torch
@@ -993,17 +1100,12 @@ def _refinement_phase(card, frames, cfg, extractor, errs) -> dict:
     from vo_tpu_torch.engine.loop_closure import LoopClosureConfig, detect_loop_closures
     from vo_tpu_torch.engine.pipeline import run_offline_vo
     from vo_tpu_torch.matching.matchers import ratio_match
-    from vo_tpu_torch.utils.synthetic import depth_valid_fraction, loop_trajectory
+    from vo_tpu_torch.utils.synthetic import loop_trajectory
 
     sub_s = {}
     t0 = time.perf_counter()
     gt = np.asarray(loop_trajectory(**LOOP), np.float64)
     LF = len(gt)
-    imgs = np.stack([f[0] for f in frames])
-    deps = np.stack([f[1] for f in frames])
-    dvf = float(depth_valid_fraction(deps).min())
-    if dvf <= 0.5:
-        raise AssertionError(f"degenerate loop workload: depth-valid fraction {dvf:.3f}")
 
     # The odometry, as bench.py runs it (run_offline_vo with the features kept).
     _reset_counts()
@@ -1354,17 +1456,13 @@ def _homography_check(card, dev="cuda") -> None:
                              "misses the true H")
 
 
-def _longrun_phase(card, seq_dir, render_async) -> dict:
+def _longrun_phase(card, seq_dir) -> dict:
     """Phase 12: ``vo_tpu_torch.runners.longrun.main`` on the long-run world rendered
     into ``seq_dir`` (git-ignored; ``main()`` removes it). Returns the wgmma launches
     and the pair verifications."""
     from vo_tpu_torch.engine import refine
     from vo_tpu_torch.runners import longrun
 
-    t0 = time.perf_counter()
-    render_async.get(timeout=900)
-    longrun.mark_complete(seq_dir, F_LONG)
-    wait_s = time.perf_counter() - t0
     out = os.path.join(seq_dir, "longrun.json")
     _reset_counts()
     refine.verify_row_pairs.pairs = 0
@@ -1386,8 +1484,8 @@ def _longrun_phase(card, seq_dir, render_async) -> dict:
           f"launches {counts} (expected {expected}: {warm} warm-up, {F_LONG - 1} run, "
           f"{n_verified} verifications), {report['fps_io_included']} fps I/O included, "
           f"peak host RSS {report['peak_host_rss_mb']} MiB, peak device "
-          f"{report.get('peak_device_mb')} MiB, render wait {wait_s:.1f} s, main "
-          f"{run_s:.1f} s -> {'ok' if ok else 'FAIL'}")
+          f"{report.get('peak_device_mb')} MiB, main {run_s:.1f} s -> "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the long run failed its gate, its checkpoint or its "
                              "launch count")
@@ -1480,8 +1578,8 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
     gparams = params_to(params, dev)
     diffs = {}
     for dt in ("float32", "bfloat16"):
-        cpu = apply_patchnet(params, spec, x, dt)
-        gpu = apply_patchnet(gparams, spec, x.to(dev), dt)
+        cpu = apply_patchnet(params, spec, x, compute_dtype=dt)
+        gpu = apply_patchnet(gparams, spec, x.to(dev), compute_dtype=dt)
         diffs[dt] = {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in cpu}
     again = extract_all(extractors["bfloat16"], B)[0]
     repeat = all(torch.equal(a, b[:B]) for a, b in zip(again, feats))
@@ -1973,26 +2071,126 @@ def _distributed_phase(card, imgs, deps, errs) -> dict:
     return {"launches": counts["wgmma"]}
 
 
+def _second_process(conn, work) -> None:
+    """Phases 9, 12, 11 and 13 in a second process (see the module docstring),
+    each on frames it renders itself. Sends back its launches, kernel errors and
+    seconds, or the traceback of a failure. Its standard output goes to
+    ``work/second.log``, which the first process prints."""
+    import contextlib
+    import traceback
+
+    with open(os.path.join(work, "second.log"), "w", buffering=1) as log, \
+            contextlib.redirect_stdout(log):
+        try:
+            conn.send(_second_phases(work))
+        except BaseException:
+            traceback.print_exc(file=log)
+            conn.send({"error": traceback.format_exc()})
+
+
+def _second_phases(work) -> dict:
+    import torch
+
+    from vo_tpu_torch.engine.pipeline import extract_and_backproject
+    from vo_tpu_torch.engine.vo import VOConfig
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
+    from vo_tpu_torch.io.dataset import write_gray_u16mm_dir
+    from vo_tpu_torch.runners import longrun
+    from vo_tpu_torch.utils.synthetic import default_world, loop_trajectory, slalom_trajectory
+
+    card = _card()
+    cfg = VOConfig(matcher="ratio_binary", pnp=PnPConfig(n_hypotheses=512))
+    extractor = OrbLikeExtractor(max_kp=2048)
+    errs, seconds, out = {"wgmma": [], "simt": []}, {}, {}
+
+    # Phase 9: the loop workload of bench.py's refine block, rendered on the card.
+    t0 = time.perf_counter()
+    loop_poses = loop_trajectory(**LOOP)
+    loop_world = default_world(half_width=14.0, fine_amp=1.0)
+    limgs, ldeps = _render_on_card(loop_poses, loop_world)
+    _hold_render("loop workload", loop_poses, limgs, ldeps, loop_world)
+    seconds["loop_render"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["refine"] = _refinement_phase(card, limgs, ldeps, cfg, extractor, errs)
+    del limgs, ldeps
+    seconds["refinement"] = time.perf_counter() - t0
+
+    # Phase 12: the long-run world (runners/longrun.py's frames and files), then the run.
+    t0 = time.perf_counter()
+    long_dir = os.path.join(work, "longrun")
+    long_poses = slalom_trajectory(F_LONG, step=0.8)
+    long_world, long_max = default_world(far_z=F_LONG * 0.8 + 120), F_LONG * 0.8 + 140
+    gimgs, gdeps = _render_on_card(long_poses, long_world, long_max)
+    _hold_render("long run", long_poses, gimgs, gdeps, long_world, long_max)
+    write_gray_u16mm_dir(long_dir, gimgs, gdeps)
+    longrun.mark_complete(long_dir, F_LONG)
+    del gimgs, gdeps
+    seconds["long_run_render_and_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["long"] = _longrun_phase(card, long_dir)
+    seconds["long_run"] = time.perf_counter() - t0
+
+    # Phases 11 and 13 on the first F_MONO slalom frames, rendered here (the same bits
+    # as the first process's), with the main path's extractor in batches of 16.
+    t0 = time.perf_counter()
+    gt = np.asarray(slalom_trajectory(F, step=STEP), np.float64)
+    imgs, deps = _render_on_card(gt[:F_MONO])
+    Kd = torch.from_numpy(K).cuda()
+    chunks = [extract_and_backproject(extractor, torch.from_numpy(imgs[s:s + EXTRACT_BATCH]).cuda(),
+                                      torch.from_numpy(deps[s:s + EXTRACT_BATCH]).cuda(), Kd)
+              for s in range(0, F_MONO, EXTRACT_BATCH)]
+    feats = Features(*(torch.cat([c[0][i] for c in chunks]) for i in range(4)))
+    kp3d = torch.cat([c[1] for c in chunks])
+    out["mono"] = _mono_phase(card, feats, kp3d, gt, errs)
+    seconds["mono_homography"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["r2d2"] = _r2d2_phase(card, imgs, deps, gt, errs)
+    seconds["r2d2"] = time.perf_counter() - t0
+    return {**out, "errs": errs, "seconds": seconds}
+
+
+def _join_second(second, conn, work, timeout=1000.0) -> dict:
+    """The second process's result, after printing its lines; raises if it failed."""
+    t_end = time.perf_counter() + timeout
+    result = None
+    while result is None:
+        if conn.poll(1.0):
+            result = conn.recv()
+        elif not second.is_alive():
+            result = {"error": f"the second process exited with code {second.exitcode}"}
+        elif time.perf_counter() > t_end:
+            result = {"error": f"the second process did not finish in {timeout:.0f} s"}
+    second.join(timeout=60)
+    with open(os.path.join(work, "second.log")) as f:
+        print(f"--- phases 9, 12, 11 and 13 (second process) ---\n{f.read().rstrip()}\n"
+              f"--- end of the second process ---")
+    if "error" in result:
+        raise AssertionError(f"the second process failed:\n{result['error']}")
+    return result
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs an NVIDIA GPU")
-    long_dir = tempfile.mkdtemp(prefix="smoke_longrun_", dir=_build_dir())
-    # The renderer is per-frame independent numpy: the workloads render in a pool of
-    # processes, at a lower priority than this one, while the earlier phases run.
+    work = tempfile.mkdtemp(prefix="smoke_", dir=_build_dir())
     ctx = multiprocessing.get_context("spawn")
-    pool = ctx.Pool(processes=min(8, os.cpu_count() or 1), initializer=os.nice,
-                    initargs=(10,))
+    conn, child_conn = ctx.Pipe()
+    second = ctx.Process(target=_second_process, args=(child_conn, work),
+                         name="chip_smoke second process")
     try:
-        _smoke(pool, long_dir)
+        _smoke(second, conn, work)
     finally:
-        pool.terminate()
-        pool.join()
-        shutil.rmtree(long_dir, ignore_errors=True)
+        if second.pid is not None:
+            if second.is_alive():
+                second.terminate()
+            second.join(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
 
 
-def _smoke(pool, long_dir) -> None:
+def _smoke(second, conn, work) -> None:
     import torch
 
     t_all = time.perf_counter()
@@ -2011,55 +2209,43 @@ def _smoke(pool, long_dir) -> None:
     from vo_tpu_torch.estimation.pnp import PnPConfig
     from vo_tpu_torch.features.extractor import OrbLikeExtractor
     from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
+    from vo_tpu_torch.io.native import build_loader
     from vo_tpu_torch.ops import match
-    from vo_tpu_torch.runners import longrun
-    from vo_tpu_torch.utils.synthetic import (default_world, depth_valid_fraction,
-                                              loop_trajectory, render_rgbd,
-                                              slalom_trajectory)
+    from vo_tpu_torch.utils.synthetic import slalom_trajectory
 
-    # The slalom first (phases 3-8), then the loop workload (phase 9), behind it in
-    # the same pool.
-    traj = slalom_trajectory(F, step=STEP)
-    t_render = time.perf_counter()
-    rendered = pool.starmap_async(render_rgbd, [(T, K, H, W) for T in traj])
-    loop_world = default_world(half_width=14.0, fine_amp=1.0)
-    loop_rendered = pool.starmap_async(
-        render_rgbd, [(T, K, H, W, loop_world) for T in loop_trajectory(**LOOP)])
-    # The right eye of the slalom (bench.py:402-410), for phase 10, behind both.
-    shift = np.eye(4)
-    shift[0, 3] = BASELINE_M
-    right_rendered = pool.starmap_async(render_rgbd, [(T @ shift, K, H, W) for T in traj])
-    # The long-run world (phase 12), written to disk by the workers, behind all three.
-    long_rendered = pool.starmap_async(longrun.render_frame,
-                                       longrun.render_jobs(long_dir, F_LONG))
-
-    # Phase 2: build.
+    # Phase 2: build (the match kernels and the native loader); then the second
+    # process starts.
     t0 = time.perf_counter()
     lib, build_s, ptxas = match.build_match_kernel()
-    print(f"build: {lib} in {build_s:.2f} s")
+    print(f"build: {lib} in {build_s:.2f} s; native loader {build_loader()}")
     ptxas_lines = _ptxas_lines(ptxas)
     for line in ptxas_lines:
         print(f"  ptxas: {line}")
     for kernel in KERNELS:
         if build_s > 0 and not any(x.startswith(kernel) for x in ptxas_lines):
             raise AssertionError(f"ptxas printed nothing for {kernel}")
+    second.start()
     phase_s["build"] = time.perf_counter() - t0
 
     # Phase 3: kernels vs plain on the card (workload descriptors come after the
-    # render finishes).
+    # frames are rendered).
     t0 = time.perf_counter()
     errs = _synthetic_checks(dev)
     phase_s["kernel_checks_synthetic"] = time.perf_counter() - t0
 
-    frames = rendered.get(timeout=900)
-    phase_s["render_wall"] = time.perf_counter() - t_render
-    imgs = np.stack([f[0] for f in frames])
-    deps = np.stack([f[1] for f in frames])
-    dvf = depth_valid_fraction(deps)
-    if float(dvf.min()) <= 0.5:
-        raise AssertionError(f"degenerate workload: depth-valid fraction {dvf.min():.3f}")
-    print(f"render: {F} frames {H}x{W} in {phase_s['render_wall']:.1f} s wall")
-    gt = np.asarray(traj, np.float64)
+    # The slalom (phases 3-8, 10 and 15) and its right eye at bench.py's baseline
+    # (bench.py:402-410, phase 10), rendered on the card.
+    t0 = time.perf_counter()
+    gt = np.asarray(slalom_trajectory(F, step=STEP), np.float64)
+    imgs, deps = _render_on_card(gt)
+    _hold_render("slalom", gt, imgs, deps)
+    shift = np.eye(4)
+    shift[0, 3] = BASELINE_M
+    right_poses = np.stack([T @ shift for T in gt])
+    rights, right_deps = _render_on_card(right_poses)
+    _hold_render("slalom, right eye", right_poses, rights, right_deps)
+    del right_deps
+    phase_s["render"] = time.perf_counter() - t0
 
     extractor = OrbLikeExtractor(max_kp=2048)
     cfg = VOConfig(matcher="ratio_binary", pnp=PnPConfig(n_hypotheses=512))
@@ -2173,32 +2359,12 @@ def _smoke(pool, long_dir) -> None:
     sift_engine = VOEngine(VOConfig(**sift_cfg), device=dev)
     s_extract_ms, s_engine_ms, s_ex, s_en, _ = _timed_passes(
         sift, sift_engine, imgs_d, deps_d, Kd)
+    for path, (ex_ms, en_ms, ex, en) in (("main path", (extract_ms, engine_ms, t_ex, t_en)),
+                                         ("SIFT path", (s_extract_ms, s_engine_ms, s_ex, s_en))):
+        print(f"timing [{card}] {path}: extract {ex_ms:.3f} ms/frame (passes "
+              f"{[round(x, 3) for x in ex]}), engine {en_ms:.3f} ms/frame (passes "
+              f"{[round(x, 3) for x in en]})")
     phase_s["timing_paths"] = time.perf_counter() - t0
-
-    # Each kernel at the shapes its paths give it: the wgmma kernel on the main
-    # path's bf16 descriptors of frames 0 and 1, the SIMT kernel on the SIFT path's
-    # (D = 128) and on the main path's as fp32 (D = 256); phase 10 adds the SURF
-    # path's (D = 64).
-    t0 = time.perf_counter()
-    n_rep = 50
-    timed = [("wgmma", "match_wgmma.cu", desc_a, desc_b, valid_a, valid_b, True,
-              PEAK_BF16_FLOPS, "989 TFLOP/s bf16", launches),
-             ("simt", "match_kernel.cu", sd_a, sd_b, sv_a, sv_b, False,
-              PEAK_FP32_FLOPS, "67 TFLOP/s fp32", counts_s["simt"]),
-             ("simt", "match_kernel.cu", desc_a32, desc_b32, valid_a, valid_b, False,
-              PEAK_FP32_FLOPS, "67 TFLOP/s fp32", counts_f["simt"])]
-    entries = [_kernel_entry(card, *t, errs, n_rep) for t in timed]
-
-    # One CUDA kernel per SIMT call: no fill and no finalize kernel.
-    _, n_kernels, top = _device_profile(lambda: match.top2_mutual(sd_a, sd_b, sv_a, sv_b))
-    if n_kernels is None:
-        print("simt call under the profiler: device time not measured (empty trace)")
-    else:
-        print(f"simt call under the profiler: {n_kernels} CUDA kernel(s): "
-              f"{[name for name, _, _ in top]}")
-        if n_kernels != 1:
-            raise AssertionError(f"a SIMT call launched {n_kernels} CUDA kernels")
-    phase_s["timing_kernels"] = time.perf_counter() - t0
 
     # Where the time goes: device-busy time and kernel launches per frame under
     # torch.profiler, against the unprofiled wall time per frame measured above.
@@ -2219,65 +2385,70 @@ def _smoke(pool, long_dir) -> None:
     surf_cli_launches = _streaming_phase(card, imgs, deps, gt)
     phase_s["streaming_cli_online"] = time.perf_counter() - t0
 
-    # Phase 9: refinement on the loop workload (rendered behind the slalom).
-    t0 = time.perf_counter()
-    loop_frames = loop_rendered.get(timeout=900)
-    phase_s["loop_render_wait"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    refine_launches = _refinement_phase(card, loop_frames, cfg, extractor, errs)
-    del loop_frames
-    phase_s["refinement"] = time.perf_counter() - t0
-
     # Phase 10: the other front-ends and bench's adversarial workload.
     t0 = time.perf_counter()
-    rights = np.stack([f[0] for f in right_rendered.get(timeout=900)])
-    phase_s["right_eye_render_wait"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     front = _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs)
+    del rights
     phase_s["front_ends"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fl = front["launches"]
-    surf_entry = _kernel_entry(card, "simt", "match_kernel.cu", *front["surf01"], False,
-                               PEAK_FP32_FLOPS, "67 TFLOP/s fp32",
-                               fl["surf"] + surf_cli_launches, errs)
-    surf_entry["launches_by_path"] = {
-        f"SURF path (run_offline_vo, {F_TIMED} frames)": fl["surf"],
-        "SURF config (vo_run, 48 frames)": surf_cli_launches}
-    entries.append(surf_entry)
-    phase_s["timing_kernel_simt64"] = time.perf_counter() - t0
-
-    # Phase 11: mono and homography.
-    t0 = time.perf_counter()
-    mono_launches = _mono_phase(card, feats, kp3d, gt, errs)
-    phase_s["mono_homography"] = time.perf_counter() - t0
-
-    # Phase 12: the long run, cut to F_LONG frames.
-    t0 = time.perf_counter()
-    long = _longrun_phase(card, long_dir, long_rendered)
-    phase_s["long_run"] = time.perf_counter() - t0
-
-    # Phase 13: the R2D2 front-end.
-    t0 = time.perf_counter()
-    r2d2 = _r2d2_phase(card, imgs, deps, gt, errs)
-    phase_s["r2d2"] = time.perf_counter() - t0
-    entries[1]["launches"] += r2d2["launches"]
 
     # Phase 14: R2D2 training and the retrain-parity runner.
     t0 = time.perf_counter()
     training = _training_phase(card, errs)
     phase_s["training"] = time.perf_counter() - t0
 
+    # Phases 9, 12, 11 and 13 from the second process.
+    t0 = time.perf_counter()
+    second_result = _join_second(second, conn, work)
+    phase_s["second_process_wait"] = time.perf_counter() - t0
+    for k, v in second_result["seconds"].items():
+        phase_s[f"{k} (second process)"] = v
+    for k, v in second_result["errs"].items():
+        errs[k] += v
+    refine_launches, long = second_result["refine"], second_result["long"]
+    r2d2 = second_result["r2d2"]
+
+    # Phase 7: each kernel at the shapes its paths give it, timed with the card to this
+    # process alone: the wgmma kernel on the main path's bf16 descriptors of frames 0
+    # and 1, the SIMT kernel on the SIFT path's (D = 128), on the main path's as fp32
+    # (D = 256) and on the SURF path's (D = 64).
+    t0 = time.perf_counter()
+    n_rep = 50
+    fl = front["launches"]
+    timed = [("wgmma", "match_wgmma.cu", desc_a, desc_b, valid_a, valid_b, True,
+              PEAK_BF16_FLOPS, "989 TFLOP/s bf16", launches),
+             ("simt", "match_kernel.cu", sd_a, sd_b, sv_a, sv_b, False,
+              PEAK_FP32_FLOPS, "67 TFLOP/s fp32",
+              counts_s["simt"] + r2d2["launches"] + training["launches"]),
+             ("simt", "match_kernel.cu", desc_a32, desc_b32, valid_a, valid_b, False,
+              PEAK_FP32_FLOPS, "67 TFLOP/s fp32", counts_f["simt"]),
+             ("simt", "match_kernel.cu", *front["surf01"], False,
+              PEAK_FP32_FLOPS, "67 TFLOP/s fp32", fl["surf"] + surf_cli_launches)]
+    entries = [_kernel_entry(card, *t, errs, n_rep) for t in timed]
+
+    # One CUDA kernel per SIMT call: no fill and no finalize kernel.
+    _, n_kernels, top = _device_profile(lambda: match.top2_mutual(sd_a, sd_b, sv_a, sv_b))
+    if n_kernels is None:
+        print("simt call under the profiler: device time not measured (empty trace)")
+    else:
+        print(f"simt call under the profiler: {n_kernels} CUDA kernel(s): "
+              f"{[name for name, _, _ in top]}")
+        if n_kernels != 1:
+            raise AssertionError(f"a SIMT call launched {n_kernels} CUDA kernels")
+    phase_s["timing_kernels"] = time.perf_counter() - t0
+
     # Phase 15: the distributed layer over one NCCL rank.
     t0 = time.perf_counter()
     distributed = _distributed_phase(card, imgs, deps, errs)
     phase_s["distributed"] = time.perf_counter() - t0
-    entries[1]["launches"] += training["launches"]
+
     entries[1]["launches_by_path"] = {
         "SIFT path (run_offline_vo, 160 frames)": counts_s["simt"],
         f"R2D2 path (VOEngine on R2D2 features, {F_TIMED} frames)": r2d2["launches"],
         f"MMA harness (retrain_parity, {training['pairs']} evaluated pairs)":
             training["launches"]}
-
+    entries[3]["launches_by_path"] = {
+        f"SURF path (run_offline_vo, {F_TIMED} frames)": fl["surf"],
+        f"SURF config (vo_run, {F_TIMED} frames)": surf_cli_launches}
     by_path = {"main path (run_offline_vo, 160 frames)": launches,
                "refinement (refine_full, loop workload)": refine_launches["refine_full"],
                "refinement (vo_run --refine, loop workload)":
@@ -2285,7 +2456,7 @@ def _smoke(pool, long_dir) -> None:
                "stereo path (160 frames)": fl["stereo"],
                "adversarial path (run_offline_vo, 160 frames)": fl["adversarial"],
                f"oriented BRIEF path (run_offline_vo, {F_TIMED} frames)": fl["oriented"],
-               f"mono path (MonoVOEngine, {F_MONO} frames)": mono_launches,
+               f"mono path (MonoVOEngine, {F_MONO} frames)": second_result["mono"],
                f"long run (longrun.main: 48 warm-up + {F_LONG} frames, "
                f"{long['verified']} pair verifications)": long["launches"],
                f"distributed dry run (inference_rank over one NCCL rank, {F_DIST} frames)":
@@ -2294,11 +2465,6 @@ def _smoke(pool, long_dir) -> None:
     for e in entries:
         e["max_abs_err"] = max(errs["wgmma" if "wgmma" in e["name"] else "simt"])
 
-    for path, (ex_ms, en_ms, ex, en) in (("main path", (extract_ms, engine_ms, t_ex, t_en)),
-                                         ("SIFT path", (s_extract_ms, s_engine_ms, s_ex, s_en))):
-        print(f"timing [{card}] {path}: extract {ex_ms:.3f} ms/frame (passes "
-              f"{[round(x, 3) for x in ex]}), engine {en_ms:.3f} ms/frame (passes "
-              f"{[round(x, 3) for x in en]})")
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
@@ -2307,7 +2473,6 @@ def _smoke(pool, long_dir) -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -1,7 +1,10 @@
 """Port parity: the public functions of the ported modules that the main path does not
 call (camera model, SE(3) helpers, image ops, ``matches_to_pairs``,
-``native_available``) and the subpackage re-exports, the JAX package against the port
-on the same seeded numpy inputs, on the CPU.
+``native_available``), the JAX package against the port on the same seeded numpy
+inputs, on the CPU; and the port's API against the JAX package's, read from both
+source trees with ``ast``: every module has its counterpart, every public name is
+there, every public signature extends JAX's positional parameters (three deliberate
+departures), and each of the 14 subpackages re-exports what JAX's does.
 
 Tolerances and their reasons:
 - elementwise formulas (projection, normalisation, distortion, visibility, dense
@@ -14,7 +17,10 @@ Tolerances and their reasons:
 - ``bilinear_sample``, ``matches_to_pairs``, the masks: exact.
 """
 
+import ast
+import functools
 import importlib
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,41 +55,158 @@ def _poses(rng, n):
     return T
 
 
-# Every name the JAX package's subpackage __init__ re-exports.
-EXPORTS = {
-    "geometry": ["hat", "vee", "so3_exp", "so3_log", "rodrigues", "inv_rodrigues",
-                 "se3_exp", "se3_log", "pose_from_rt", "pose_inverse", "pose_compose",
-                 "transform_points", "chain_relative_poses", "identity_pose",
-                 "PinholeCamera", "project", "unproject", "normalize_kp",
-                 "depth_to_3d_at", "depth_to_3d", "triangulate", "umeyama_alignment"],
-    "ops": ["rgb_to_gray", "gaussian_blur", "sobel_gradients", "box_filter",
-            "maxpool2d_same", "avgpool2d", "bilinear_sample"],
-    "matching": ["similarity_matrix", "mutual_nn_match", "ratio_mutual_nn_match",
-                 "ratio_match", "MatchResult", "matches_to_pairs"],
-    "features": ["harris_response", "shi_tomasi_response", "detect_keypoints",
-                 "oriented_brief_descriptors", "brief_offsets", "OrbLikeExtractor",
-                 "Features"],
-    "estimation": ["PnPConfig", "PnPResult", "pnp_ransac", "kabsch", "EssentialConfig",
-                   "EssentialResult", "essential_ransac", "relative_scale"],
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+JAX_PKG, PORT_PKG = ROOT / "vo_tpu", ROOT / "vo_tpu_torch"
+# JAX modules whose counterpart has another path, or none (ROADMAP queue 1, "Not to
+# port": JAX's matmul-precision decorator is TF32 off in device.py).
+COUNTERPART = {"ops/pallas_match.py": "ops/match.py", "ops/precision.py": None}
+# The Pallas wrappers' names in ops/match.py. Their ``interpret`` (Pallas's interpret
+# mode) has no counterpart: the port's wrappers take the plain version on CPU tensors.
+RENAMED = {"top2_mutual_pallas": "top2_mutual",
+           "ratio_mutual_nn_match_pallas": "ratio_mutual_nn_match_fused",
+           "ratio_match_pallas": "ratio_match_fused"}
+# Signatures that depart on purpose (ROADMAP section 3, "Deliberate departures").
+SIGNATURE_DEPARTURES = {
+    ("parallel/mesh.py", "make_mesh"),      # no devices: the mesh spans the process group
+    ("utils/debug.py", "display_image"),    # out_dir required: there is no window
+    ("utils/seg.py", "seg_train_step"),     # a torch.optim optimizer holds its own state
 }
-LATER: dict = {}
+MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+PORTED = [m for m in MODULES if COUNTERPART.get(m, m) is not None]
+SUBPACKAGES = sorted(p.parent.name for p in JAX_PKG.glob("*/__init__.py"))
 
 
-@pytest.mark.parametrize("sub", sorted(EXPORTS))
+@functools.lru_cache(maxsize=None)
+def _tree(path: pathlib.Path) -> ast.Module:
+    return ast.parse(path.read_text(), str(path))
+
+
+def _port_path(module: str) -> pathlib.Path:
+    return PORT_PKG / COUNTERPART.get(module, module)
+
+
+def _is_public(name: str) -> bool:
+    return not name.startswith("_") or name == "__version__"
+
+
+def _defined(tree: ast.Module) -> dict:
+    """Top-level names a module defines (functions, classes, assignments) -> node."""
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = node
+        elif isinstance(node, ast.Assign):
+            out.update((t.id, node) for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            out[node.target.id] = node
+    return out
+
+
+def _imported(tree: ast.Module) -> set:
+    return {(a.asname or a.name).split(".")[0] for node in tree.body
+            if isinstance(node, (ast.Import, ast.ImportFrom)) for a in node.names} - {
+                "annotations"}
+
+
+def _functions(tree: ast.Module) -> dict:
+    """Public functions and public methods (with ``__init__`` and ``__call__``) of
+    public classes -> their positional parameter names, ``self``/``cls`` dropped."""
+    def positional(fn):
+        names = [a.arg for a in fn.args.posonlyargs + fn.args.args]
+        return names[1:] if names[:1] in (["self"], ["cls"]) else names
+
+    out = {}
+    for name, node in _defined(tree).items():
+        if not _is_public(name):
+            continue
+        if isinstance(node, ast.FunctionDef):
+            out[name] = positional(node)
+        elif isinstance(node, ast.ClassDef):
+            out.update((f"{name}.{m.name}", positional(m)) for m in node.body
+                       if isinstance(m, ast.FunctionDef)
+                       and (_is_public(m.name) or m.name in ("__init__", "__call__")))
+    return out
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_every_jax_module_has_its_counterpart(module):
+    if COUNTERPART.get(module, module) is None:
+        assert module == "ops/precision.py"
+    else:
+        assert _port_path(module).is_file(), module
+
+
+@pytest.mark.parametrize("module", PORTED)
+def test_public_names_are_ported(module):
+    """Every public top-level name of a JAX module is bound in its counterpart."""
+    port = _tree(_port_path(module))
+    port_names = set(_defined(port)) | _imported(port)
+    missing = [n for n in _defined(_tree(JAX_PKG / module))
+               if _is_public(n) and RENAMED.get(n, n) not in port_names]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("module", PORTED)
+def test_signatures_extend_the_jax_ones(module):
+    """JAX's positional parameter names are a prefix of the port's, for every public
+    function and method (a positional call written for JAX means the same), except
+    the deliberate departures, which must still depart."""
+    port = _functions(_tree(_port_path(module)))
+    departs = set()
+    for name, params in _functions(_tree(JAX_PKG / module)).items():
+        got = port.get(RENAMED.get(name, name))
+        if name in RENAMED:
+            params = [p for p in params if p != "interpret"]
+        if got is None or got[:len(params)] != params:
+            departs.add((module, name))
+    assert departs == {d for d in SIGNATURE_DEPARTURES if d[0] == module}
+
+
+def test_version_is_the_jax_packages():
+    import vo_tpu_torch
+
+    jax_version = next(ast.literal_eval(n.value) for n in _tree(JAX_PKG / "__init__.py").body
+                       if isinstance(n, ast.Assign) and n.targets[0].id == "__version__")
+    assert vo_tpu_torch.__version__ == jax_version == "0.1.0"
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_subpackage_exports(sub):
-    """Each subpackage re-exports what the JAX package's does, and importing it builds
-    no kernel."""
+    """Each subpackage re-exports every name the JAX package's ``__init__`` imports,
+    defined in the port, and importing it builds no kernel."""
     from vo_tpu_torch.ops import match
 
-    jmod = importlib.import_module(f"vo_tpu.{sub}")
+    names = _imported(_tree(JAX_PKG / sub / "__init__.py"))
     tmod = importlib.import_module(f"vo_tpu_torch.{sub}")
-    jnames = {n for n in vars(jmod) if not n.startswith("_")
-              and not isinstance(getattr(jmod, n), type(importlib))}
-    assert jnames - LATER.get(sub, set()) <= set(EXPORTS[sub]) | {"annotations"}
-    for name in EXPORTS[sub]:
-        assert name in jnames, name
+    for name in names:
+        assert hasattr(tmod, name), name
         assert getattr(tmod, name).__module__.startswith("vo_tpu_torch."), name
+    assert len(SUBPACKAGES) == 14
     assert match._lib is None
+
+
+def test_apply_patchnet_train_by_position():
+    """``apply_patchnet(params, spec, images, True)`` is the train-mode forward in both
+    packages (the JAX parameter order: ``train`` before ``compute_dtype``)."""
+    import jax
+
+    from vo_tpu.models import patchnet as jpatchnet
+    from vo_tpu_torch.models import patchnet as tpatchnet
+    from vo_tpu_torch.port_state import patchnet_params_from_jax
+
+    jspec = jpatchnet.PatchNetSpec("t", jpatchnet._fast_quad_specs(1, 8), out_dim=8,
+                                   upsample=2)
+    tspec = tpatchnet.PatchNetSpec("t", tpatchnet._fast_quad_specs(1, 8), out_dim=8,
+                                   upsample=2)
+    params = jpatchnet.init_patchnet_params(jax.random.key(3), jspec)
+    x = np.random.default_rng(92).normal(size=(2, 32, 48, 3)).astype(np.float32)
+    jout = jpatchnet.apply_patchnet(params, jspec, jnp.asarray(x), True)
+    tout = tpatchnet.apply_patchnet(
+        patchnet_params_from_jax(jax.tree.map(np.asarray, params), "cpu"), tspec,
+        torch.from_numpy(x), True)
+    assert len(tout["bn_stats"]) == len(jout["bn_stats"]) > 0
+    for k in ("descriptors", "reliability", "repeatability"):
+        np.testing.assert_allclose(tout[k].numpy(), np.asarray(jout[k]), rtol=0, atol=2e-5)
 
 
 def test_project_normalize_unproject(rng):

@@ -23,7 +23,8 @@ the SIMT kernel. A training step on the card is held to its CPU run, two trainin
 repeat bit for bit, and the MMA harness's matches go through the SIMT kernel. The
 distributed layer runs over a one-rank NCCL group (the card's machine has one GPU):
 the sharded BA against ``bundle_adjust``, the data-parallel step against the plain
-one, and the dry run's CLI.
+one, and the dry run's CLI. The benchmark (``runners/bench.py``) runs at a small size
+through both kernels.
 """
 
 import numpy as np
@@ -690,8 +691,8 @@ def test_patchnet_on_the_card_matches_the_cpu(cuda_device, arch):
                                               "repeatability": 1e-4}, 1e-5),
                                  ("bfloat16", {"descriptors": 1e-2, "reliability": 6e-2,
                                                "repeatability": 6e-2}, 2.0 ** -8)):
-        cpu = apply_patchnet(params, spec, x, dtype)
-        gpu = apply_patchnet(gparams, spec, x.to(cuda_device), dtype)
+        cpu = apply_patchnet(params, spec, x, compute_dtype=dtype)
+        gpu = apply_patchnet(gparams, spec, x.to(cuda_device), compute_dtype=dtype)
         for k, t in tol.items():
             d = (gpu[k].cpu() - cpu[k]).abs()
             assert float(d.max()) <= t and float(d.mean()) <= mean_tol, (dtype, k)
@@ -989,3 +990,26 @@ def test_nccl_refuses_two_ranks_on_one_gpu(cuda_device, tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert "Duplicate GPU detected" in proc.stdout + proc.stderr
+
+
+@pytest.mark.cuda
+def test_bench_on_the_card(cuda_device, monkeypatch, tmp_path, capsys):
+    """``runners/bench.py`` at tests/test_torch_bench.py's small size on the card: the
+    wgmma kernel agrees with the plain matcher, the I/O run reads through the native
+    loader, and both kernels ran (the main path's and the SIFT config's)."""
+    import json
+
+    from vo_tpu_torch.runners import bench
+
+    sx, sy = 400 / 1232, 120 / 376
+    K = np.array([[721.53 * sx, 0.0, 609.55 * sx], [0.0, 721.53 * sx, 172.85 * sy],
+                  [0.0, 0.0, 1.0]], np.float32)
+    for name, value in dict(H=120, W=400, K=K, EXTRACT_BATCH=2, STEREO_BATCH=2,
+                            MAX_KP=256, N_HYPOTHESES=64, N_PASSES=1, LOOP_OUT_FRAMES=2,
+                            LOOP_TURN_FRAMES=2, PROCESSES=2).items():
+        monkeypatch.setattr(bench, name, value)
+    assert bench.main(["--dir", str(tmp_path), "--frames", "4"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["pallas_parity"] is True and line["io_loader"] == "native"
+    assert line["device"].startswith("NVIDIA") and line["trajectory_sane"] is True
+    assert match.launch_wgmma.launches >= 1 and match.launch_simt.launches >= 1

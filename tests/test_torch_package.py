@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "runners/train_r2d2", "runners/retrain_parity", "evalkit/mma", "utils/seg",
         "utils/profiling", "utils/debug", "prng", "models/patchnet", "port_state",
         "parallel/__init__", "parallel/mesh", "parallel/comm", "parallel/launch",
-        "ba/distributed", "runners/dryrun")} <= names
+        "ba/distributed", "runners/dryrun", "runners/bench")} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -204,6 +204,17 @@ def test_mono_slice_defaults_to_gpu(no_cuda, tmp_path):
         torch.from_numpy(np.stack([kp1] * F)), torch.ones(F, 40, 256, dtype=torch.bfloat16),
         torch.ones(F, 40, dtype=torch.bool), torch.ones(F, 40, 3), torch.from_numpy(K))
     assert poses.shape == (F, 4, 4) and diag.accepted.shape == (F - 1,)
+
+
+def test_bench_defaults_to_gpu(no_cuda, tmp_path):
+    """The benchmark raises without a GPU before it renders a frame; with
+    ``--device cpu`` it runs (tests/test_torch_bench.py, at a small size, with CUDA
+    reported absent as here)."""
+    from vo_tpu_torch.runners import bench
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--dir", str(tmp_path / "seq")])
+    assert not (tmp_path / "seq").exists()
 
 
 def test_r2d2_slice_defaults_to_gpu(no_cuda, tmp_path):

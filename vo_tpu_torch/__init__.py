@@ -1,4 +1,11 @@
-"""vo_tpu_torch: the PyTorch + CUDA port of vo_tpu's RGB-D visual-odometry main path.
+"""vo_tpu_torch: the PyTorch + CUDA port of vo_tpu, the visual-odometry / SfM engine.
 
-The JAX package ``vo_tpu`` is the reference; this package imports nothing of it.
+Every module of the JAX package ``vo_tpu`` has its counterpart here, with the same
+layout and names: the front-ends (ORB-like, SIFT config, SURF, oriented BRIEF, true
+stereo, R2D2), the RGB-D and monocular engines, refinement (bundle adjustment, pose
+graph, loop closure), R2D2 training, the distributed layer, I/O, the CLIs and the
+benchmark (``runners/bench.py``). The fused match kernel is hand-written CUDA for
+Hopper (``ops/csrc``). ``vo_tpu`` is the reference; this package imports nothing of it.
 """
+
+__version__ = "0.1.0"

@@ -11,6 +11,8 @@ fallback: asking for ``cuda`` on a machine without one raises.
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -49,3 +51,18 @@ def device_for(x, device: str | torch.device | None = None) -> torch.device:
     if device is None and isinstance(x, torch.Tensor):
         device = x.device
     return resolve_device(device)
+
+
+def card_name(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"), torch's
+    name of the card when nvidia-smi cannot be read, and ``str(dev)`` off the card."""
+    if dev.type != "cuda":
+        return str(dev)
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60)
+        return out.stdout.strip().splitlines()[dev.index or 0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(dev)} (power limit not read)"

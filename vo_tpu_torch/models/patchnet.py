@@ -190,7 +190,7 @@ class PatchNet(nn.Module):
             dst.copy_(torch.as_tensor(src))
 
     def forward(self, images: torch.Tensor, compute_dtype=torch.float32) -> dict:
-        return apply_patchnet(self, self.spec, images, compute_dtype)
+        return apply_patchnet(self, self.spec, images, compute_dtype=compute_dtype)
 
 
 def _dtype(dt) -> torch.dtype:
@@ -219,22 +219,22 @@ def _batch_moments(xf: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]
     return mean, comm.all_reduce_sum(dev2, group, "BatchNorm squares") / n
 
 
-def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor,
-                   compute_dtype=torch.float32, train: bool = False, group=None) -> dict:
+def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor, train: bool = False,
+                   compute_dtype=torch.float32, group=None) -> dict:
     """Forward pass.
 
     Args:
       params: a parameter dict (``init_patchnet_params``, ``load_torch_checkpoint``)
         or a ``PatchNet``; on the device of ``images``.
       images: (B, H, W, 3) ImageNet-normalised fp32 (H, W even for the Fast variant).
-      compute_dtype: the trunk's dtype (a torch dtype or its name). Each convolution
-        runs in it and then adds its bias in it; BatchNorm runs in fp32 and casts
-        back; the heads run in fp32 (both in fp64 when the trunk is fp64, which gives
-        an fp64 reference of the same computation).
       train: True normalises with the batch's moments over (B, H, W) in fp32 (the
         population variance, as ``jnp.var``) instead of the running statistics, and
         adds ``bn_stats``, the per-layer (mean, var), to the output for
         ``update_bn_running_stats``.
+      compute_dtype: the trunk's dtype (a torch dtype or its name). Each convolution
+        runs in it and then adds its bias in it; BatchNorm runs in fp32 and casts
+        back; the heads run in fp32 (both in fp64 when the trunk is fp64, which gives
+        an fp64 reference of the same computation).
       group: in train mode, a ``torch.distributed`` group over which the batch is
         split in equal shares: the moments are then the whole batch's.
     Returns:

@@ -30,6 +30,7 @@ import sys
 import numpy as np
 import torch
 
+from vo_tpu_torch.device import card_name
 from vo_tpu_torch.ops import match
 
 
@@ -184,12 +185,6 @@ def _build_all(sources: dict[str, str], out_dir: str, other: str) -> dict[str, s
     return libs
 
 
-def _card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    return out.stdout.strip()
-
-
 def _ablate(label: str, kernel_file: str, other: str, cuts, call) -> None:
     """Times the whole kernel and each cut copy of ``kernel_file`` in turns."""
     with open(os.path.join(os.path.dirname(__file__), "csrc", kernel_file)) as f:
@@ -207,8 +202,8 @@ def _ablate(label: str, kernel_file: str, other: str, cuts, call) -> None:
         match._lib = bound
         match._scratch.clear()
     whole = float(np.mean(times["whole kernel"]))
-    print(f"{label} ablation [{_card()}], CUDA-graph replays: whole kernel "
-          f"{whole * 1e3:.2f} us")
+    card = card_name(torch.device("cuda"))
+    print(f"{label} ablation [{card}], CUDA-graph replays: whole kernel {whole * 1e3:.2f} us")
     for name, ts in times.items():
         if name != "whole kernel":
             t = float(np.mean(ts))
@@ -241,7 +236,8 @@ def main() -> None:
     rng = np.random.default_rng(0)
     if sys.argv[1:2] == ["fp32"]:
         times = fp32_times(rng)
-        print(f"fp32 kernel times [{_card()}] ({match.__file__}), CUDA-graph replays: "
+        card = card_name(torch.device("cuda"))
+        print(f"fp32 kernel times [{card}] ({match.__file__}), CUDA-graph replays: "
               + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in times.items()))
         if "--times-only" in sys.argv:
             return

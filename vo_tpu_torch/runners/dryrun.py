@@ -173,8 +173,10 @@ def bn_moments_rank(rank, spec, cfg, leaves, batch) -> dict:
     dt = trainer._leaves(state.params)[0].dtype
     with torch.no_grad():
         x1, x2 = (trainer._normalize(x.to(dt)) for x in (img1, img2))
-        shared = apply_patchnet(state.params, spec, x1, dt, train=True, group=group)
-        own = [apply_patchnet(state.params, spec, x, dt, train=True) for x in (x1, x2)]
+        shared = apply_patchnet(state.params, spec, x1, train=True, compute_dtype=dt,
+                                group=group)
+        own = [apply_patchnet(state.params, spec, x, train=True, compute_dtype=dt)
+               for x in (x1, x2)]
         total = r2d2_loss(*own, flow, mask, w_cosim=cfg.w_cosim, w_peaky=cfg.w_peaky,
                           w_ap=cfg.w_ap, stride=cfg.sample_stride, sampler=cfg.sampler)[0]
     out = {}

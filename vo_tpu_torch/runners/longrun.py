@@ -23,7 +23,6 @@ import json
 import multiprocessing
 import os
 import resource
-import subprocess
 import sys
 import time
 
@@ -93,21 +92,6 @@ def _render_job(job) -> None:
     render_frame(*job)
 
 
-def _device_name(dev) -> str:
-    """The card's name and power limit as nvidia-smi prints them, else torch's name."""
-    import torch
-
-    if dev.type != "cuda":
-        return str(dev)
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60)
-        return out.stdout.strip().splitlines()[dev.index or 0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return f"{torch.cuda.get_device_name(dev)} (power limit not read)"
-
-
 def main(argv=None, device: str | None = None) -> int:
     """The long run on ``device`` (default cuda; raises if there is no GPU) -> exit code."""
     ap = argparse.ArgumentParser(description=__doc__,
@@ -121,7 +105,7 @@ def main(argv=None, device: str | None = None) -> int:
 
     import torch
 
-    from vo_tpu_torch.device import resolve_device
+    from vo_tpu_torch.device import card_name, resolve_device
 
     dev = resolve_device(device)
 
@@ -208,7 +192,7 @@ def main(argv=None, device: str | None = None) -> int:
                                "seg_rot_err_deg_100m": 1.271,
                                "source": "plot_utils/data/global_poses.npy "
                                          "scored by kittievalodom.py (BASELINE.md)"},
-        "device": _device_name(dev),
+        "device": card_name(dev),
     }
     report["refined_finite"] = bool(np.isfinite(refined).all())
     if dev.type == "cuda":

@@ -94,7 +94,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
-    from vo_tpu_torch.device import resolve_device, to_device
+    from vo_tpu_torch.device import card_name, resolve_device, to_device
     from vo_tpu_torch.models.patchnet import FAST_QUAD_L2NET_CONFCFS
     from vo_tpu_torch.train import TrainConfig, create_train_state, train_step_batch
     from vo_tpu_torch.train.pairs import photometric_augment_batch
@@ -112,7 +112,7 @@ def main(argv=None) -> int:
                     "lr": args.lr, "arch": spec.name, "data_dir": data_dir,
                     "sampler": args.sampler, "lr_schedule": args.lr_schedule,
                     "eval_images": int(eval_images.shape[0]), "curve": [],
-                    "device": _device_name(dev)}
+                    "device": card_name(dev)}
 
     # The published weights through the same harness, when they are present.
     if not args.skip_ported:
@@ -209,14 +209,6 @@ def main(argv=None) -> int:
           f"trained {trained if trained is None else f'{trained:.3f}'} "
           f"(ported {report.get('mma3_ported')})")
     return 0
-
-
-def _device_name(dev) -> str:
-    if dev.type != "cuda":
-        return str(dev)
-    from vo_tpu_torch.runners.longrun import _device_name as card
-
-    return card(dev)
 
 
 def _write(report: dict, out: str, t0: float) -> None:

@@ -257,10 +257,10 @@ def train_step_batch(state: TrainState, batch, spec: PatchNetSpec, cfg: TrainCon
         leaves_g = [t.detach().requires_grad_(i in trainable) for i, t in enumerate(leaves)]
         params = _rebuild(state.params, leaves_g)
         dt = leaves[0].dtype                 # the step runs in its parameters' dtype
-        out1 = apply_patchnet(params, spec, _normalize(img1.to(dt)), dt, train=True,
-                              group=group)
-        out2 = apply_patchnet(params, spec, _normalize(img2.to(dt)), dt, train=True,
-                              group=group)
+        out1 = apply_patchnet(params, spec, _normalize(img1.to(dt)), train=True,
+                              compute_dtype=dt, group=group)
+        out2 = apply_patchnet(params, spec, _normalize(img2.to(dt)), train=True,
+                              compute_dtype=dt, group=group)
         total, metrics = r2d2_loss(out1, out2, flow, mask, w_cosim=cfg.w_cosim,
                                    w_peaky=cfg.w_peaky, w_ap=cfg.w_ap,
                                    stride=cfg.sample_stride, sampler=cfg.sampler)

@@ -4,7 +4,7 @@ A small first-party FCN (a 3-level encoder-decoder: stride-2 convolutions down,
 bilinear 2x upsampling, skip additions) that gives ``auto_park_vision`` its road mask,
 a zero-weight heuristic mask when there are no weights, and one supervised training
 step. Parameters are a dict of {"w" (OIHW), "b"} per layer; ``init_segnet_params``
-draws them from a ``torch.Generator`` (the JAX package's scheme, torch's bits), and
+draws them from a ``prng`` key (the JAX package's weights for the same key), and
 ``port_state.segnet_params_from_jax`` carries the JAX package's across.
 """
 
@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from vo_tpu_torch import prng
 from vo_tpu_torch.device import device_for, to_device
 from vo_tpu_torch.ops.image import resize_bilinear
 
@@ -37,13 +38,17 @@ def _shapes(spec: SegNetSpec) -> dict:
             "head": (w, spec.n_classes, 1)}
 
 
-def init_segnet_params(generator: torch.Generator, spec: SegNetSpec = SegNetSpec()) -> dict:
-    """He-initialised weights N(0, 2 / fan_in) and zero biases, on the CPU."""
+def init_segnet_params(key: torch.Tensor, spec: SegNetSpec = SegNetSpec()) -> dict:
+    """He-initialised weights N(0, 2 / fan_in) and zero biases, drawn from the ``prng``
+    key ``key`` on its device as the JAX package draws them from the same key: the key
+    split 7 ways in ``_LAYERS`` order, one ``normal`` per layer in HWIO, transposed to
+    OIHW."""
     params = {}
-    for name in _LAYERS:
-        cin, cout, k = _shapes(spec)[name]
-        w = torch.randn((cout, cin, k, k), generator=generator) * (2.0 / (k * k * cin)) ** 0.5
-        params[name] = {"w": w, "b": torch.zeros(cout)}
+    for k, name in zip(prng.split(key, len(_LAYERS)), _LAYERS):
+        cin, cout, ks = _shapes(spec)[name]
+        w = prng.normal(k, (ks, ks, cin, cout)) * (2.0 / (ks * ks * cin)) ** 0.5
+        params[name] = {"w": w.permute(3, 2, 0, 1).contiguous(),
+                        "b": torch.zeros(cout, device=key.device)}
     return params
 
 
