@@ -27,6 +27,8 @@ one, and the dry run's CLI. The benchmark (``runners/bench.py``) runs at a small
 through both kernels.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -629,6 +631,7 @@ def test_engine_steps_make_no_host_sync_of_their_own(cuda_device):
     from vo_tpu_torch.estimation.essential import EssentialConfig
     from vo_tpu_torch.estimation.pnp import PnPConfig
     from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils import profiling
     from vo_tpu_torch.utils.synthetic import render_sequence
 
     imgs, deps, _ = render_sequence(6, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
@@ -640,12 +643,107 @@ def test_engine_steps_make_no_host_sync_of_their_own(cuda_device):
     rgbd = VOEngine(VOConfig(pnp=PnPConfig(n_hypotheses=256)), device=cuda_device)
     rgbd.run_sequence(*args)                                   # warm-up
     assert _syncs_by_file(lambda: rgbd.run_sequence(*args)) == {}
+    profiling.start()                                          # the spans add none
+    try:
+        assert _syncs_by_file(lambda: rgbd.run_sequence(*args)) == {}
+    finally:
+        spans = profiling.stop()
+    assert [s.name for s in spans].count("pnp.ransac") == 5
     mono = MonoVOEngine(MonoVOConfig(kf_min_matches=60, kf_min_inliers=30,
                                      essential=EssentialConfig(n_hypotheses=64)),
                         device=cuda_device)
     mono.run_sequence(*args)
     syncs = _syncs_by_file(lambda: mono.run_sequence(*args))
     assert set(syncs) == {"triangulation.py"} and syncs["triangulation.py"] <= 2 * 5, syncs
+
+
+@pytest.mark.cuda
+def test_device_spans_and_the_profilers_clock(cuda_device):
+    """A device span times its work with CUDA events and records none while its stream
+    is captured; on the profiler's clock (CUPTI's runtime calls in a CUDA-only trace)
+    a span holds its own kernel's launch and not the next one's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vo_tpu_torch.utils import profiling
+
+    a = torch.randn(2048, 2048, device=cuda_device)
+    (a @ a + 1).sum()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiling.start()
+        try:
+            with profiling.span("mm", device=True):
+                b = a @ a
+            time.sleep(0.002)
+            c = b + 1
+            torch.cuda.synchronize()
+        finally:
+            spans = profiling.stop()
+    (mm,) = spans
+    assert mm.device_ms > 0.0 and mm.end_ns > mm.start_ns
+    calls = [e for e in prof.profiler.kineto_results.events()
+             if e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                             "cuLaunchKernelEx")]
+    inside = [mm.start_ns <= e.start_ns() <= mm.end_ns for e in calls]
+    assert inside.count(True) >= 1 and inside.count(False) >= 1, inside
+    assert inside == sorted(inside, reverse=True)   # the mm's launches, then the add's
+
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        c = a * 2 + 1                                # warm-up off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    profiling.start()
+    try:
+        with torch.cuda.graph(g):
+            with profiling.span("captured", device=True):
+                c = a * 2 + 1
+        g.replay()
+        torch.cuda.synchronize()
+    finally:
+        (cap,) = profiling.stop()
+    assert cap.name == "captured" and cap.device_ms is None
+    assert torch.equal(c, a * 2 + 1)
+
+
+@pytest.mark.cuda
+def test_streaming_spans_on_the_card(cuda_device):
+    """The streaming entry's readback waits as spans, ``stats["sync_wait_s"]`` their sum,
+    the extraction's device time, and the poses unchanged by the recorder."""
+    from vo_tpu_torch.engine.pipeline import run_offline_vo_streaming
+    from vo_tpu_torch.engine.vo import VOConfig
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils import profiling
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, _ = render_sequence(12, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+    cfg = VOConfig(kf_min_matches=60, kf_min_inliers=30,
+                   pnp=PnPConfig(min_inliers=15, n_hypotheses=256))
+
+    def run(stats):
+        batches = ((s, imgs[s:s + 4], deps[s:s + 4]) for s in range(0, 12, 4))
+        return run_offline_vo_streaming(batches, 12, K_SMALL, vo_config=cfg,
+                                        extractor=OrbLikeExtractor(max_kp=512),
+                                        transfer_depth="sparse", device=cuda_device,
+                                        stats=stats)
+
+    plain = run({})
+    stats: dict = {}
+    profiling.start()
+    try:
+        traced = run(stats)
+    finally:
+        spans = profiling.stop()
+    np.testing.assert_array_equal(plain[0], traced[0])
+    waits = [s for s in spans if s.name == "stream.sync_wait"]
+    assert [s.attrs["what"] for s in waits] == ["readback"] * 3 + ["flush"]
+    assert stats["sync_wait_s"] == pytest.approx(
+        sum((s.end_ns - s.start_ns) * 1e-9 for s in waits), rel=1e-12, abs=1e-15)
+    ext = [s for s in spans if s.name == "stream.extract"]
+    assert len(ext) == 3 and all(s.device_ms > 0.0 for s in ext)
+    assert all(s.device_ms is None for s in spans if s.name != "stream.extract")
 
 
 K_R2D2 = np.array([[200.0, 0.0, 120.0], [0.0, 200.0, 90.0], [0.0, 0.0, 1.0]], np.float32)

@@ -19,6 +19,7 @@ from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.engine.vo import VOConfig, VOEngine, VOState, VOStepDiagnostics
 from vo_tpu_torch.features.extractor import OrbLikeExtractor
 from vo_tpu_torch.geometry.camera import depth_to_3d_at
+from vo_tpu_torch.utils.profiling import span
 
 
 class OnlineVO:
@@ -42,27 +43,34 @@ class OnlineVO:
         return feats.kp[0], feats.desc[0], feats.valid[0], kp3d
 
     def process_frame(self, img, depth, frame_no: int) -> np.ndarray:
-        """-> the (4, 4) camera-to-world pose estimate of this frame (np)."""
-        kp, desc, valid, kp3d = self._extract(img, depth)
-        kp3d_valid = self.engine._depth_valid(valid, kp3d)
-        frame_id = torch.full((), frame_no, dtype=torch.int32, device=self.device)
+        """-> the (4, 4) camera-to-world pose estimate of this frame (np).
 
-        if self.state is None or frame_no == 0:
-            pose0 = torch.eye(4, device=self.device)
-            self.state = VOState(
-                ref_kp=kp, ref_desc=desc, ref_valid=valid,
-                ref_3d=kp3d, ref_3d_valid=kp3d_valid,
-                ref_pose=pose0, ref_id=frame_id,
-                bad_pnp=torch.zeros((), dtype=torch.int32, device=self.device),
-                cur_pose=pose0,
-            )
-            return np.eye(4)
+        Spans: ``online.frame`` > ``online.extract``, the engine's step
+        (``engine.match``, ``pnp.ransac``), ``online.readback``."""
+        with span("online.frame", frame=frame_no):
+            with span("online.extract", device=True):
+                kp, desc, valid, kp3d = self._extract(img, depth)
+            kp3d_valid = self.engine._depth_valid(valid, kp3d)
+            frame_id = torch.full((), frame_no, dtype=torch.int32, device=self.device)
 
-        key = prng.fold_in(self._key, frame_id)
-        self.state, pose, diag = self.engine._step(self.K, self.state, kp, desc, valid,
-                                                   kp3d, kp3d_valid, frame_id, key)
-        self.last_diagnostics = VOStepDiagnostics(*(d.cpu().numpy() for d in diag))
-        return pose.cpu().numpy()
+            if self.state is None or frame_no == 0:
+                pose0 = torch.eye(4, device=self.device)
+                self.state = VOState(
+                    ref_kp=kp, ref_desc=desc, ref_valid=valid,
+                    ref_3d=kp3d, ref_3d_valid=kp3d_valid,
+                    ref_pose=pose0, ref_id=frame_id,
+                    bad_pnp=torch.zeros((), dtype=torch.int32, device=self.device),
+                    cur_pose=pose0,
+                )
+                return np.eye(4)
+
+            key = prng.fold_in(self._key, frame_id)
+            self.state, pose, diag = self.engine._step(self.K, self.state, kp, desc,
+                                                       valid, kp3d, kp3d_valid, frame_id,
+                                                       key)
+            with span("online.readback"):
+                self.last_diagnostics = VOStepDiagnostics(*(d.cpu().numpy() for d in diag))
+                return pose.cpu().numpy()
 
     def reset(self):
         self.state = None

@@ -8,9 +8,9 @@ Port of ``vo_tpu/engine/pipeline.py``, with the true-stereo front-end
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
-import time
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
 from vo_tpu_torch.features.stereo import stereo_depth_at
 from vo_tpu_torch.geometry.camera import depth_to_3d_at, unproject
 from vo_tpu_torch.port_state import state_from_numpy
+from vo_tpu_torch.utils.profiling import span, timed
 
 Extractor = OrbLikeExtractor | MultiScaleClassicExtractor
 
@@ -332,12 +333,20 @@ def run_offline_vo_streaming(
 
     def producer():
         """Decode side: pulls batches and stages them on the device. In sparse mode
-        the depth maps stay on the host for the consumer's gather."""
+        the depth maps stay on the host for the consumer's gather. Its k-th batch is
+        the consumer's chunk k (spans ``loader.next``, ``loader.upload``)."""
         try:
-            for start, imgs, deps in batches:
+            it = iter(batches)
+            for k in itertools.count():
+                with span("loader.next", chunk=k):
+                    got = next(it, None)
+                if got is None:
+                    break
+                start, imgs, deps = got
                 imgs = np.asarray(imgs)
                 if transfer_depth == "sparse":
-                    (imgs_d,), ev = up.upload(imgs)
+                    with span("loader.upload", chunk=k):
+                        (imgs_d,), ev = up.upload(imgs)
                     item = (start, imgs_d, np.asarray(deps), ev)
                 else:
                     deps = np.asarray(deps)
@@ -349,7 +358,8 @@ def run_offline_vo_streaming(
                                             * 1000.0).astype(np.uint16)
                     else:
                         deps = deps.astype(np.float32, copy=False)
-                    (imgs_d, deps_d), ev = up.upload(imgs, deps)
+                    with span("loader.upload", chunk=k):
+                        (imgs_d, deps_d), ev = up.upload(imgs, deps)
                     item = (start, imgs_d, deps_d, ev)
                 if not put(item):
                     return
@@ -372,17 +382,17 @@ def run_offline_vo_streaming(
     feat_rows_list = []
     diag_chunks = []
     since_ckpt = 0
-    queue_wait = sync_wait = engine_s = 0.0
+    queue_wait = sync_wait = engine_s = 0.0     # seconds, from the spans' clock reads
     h2d_sparse = d2h_bytes = 0
     n_chunks = 0
 
-    def wait(ev) -> None:
+    def wait(ev, what: str) -> None:
         """Block until ``ev`` (None on the CPU) has completed, counting the seconds."""
         nonlocal sync_wait
         if ev is not None:
-            t0 = time.perf_counter()
-            ev.synchronize()
-            sync_wait += time.perf_counter() - t0
+            with timed("stream.sync_wait", what=what) as t:
+                ev.synchronize()
+            sync_wait += t.seconds
 
     def retain_chunk(feats, kp3d, start, promoted):
         """Keep this chunk's feature rows per the retention policy (``promoted`` covers
@@ -410,17 +420,18 @@ def run_offline_vo_streaming(
         start, B, lo, n_real, end, feats, kp3d, packed_host, ev, st = pending
         pending = None
         if not synced:
-            wait(ev)
-        poses_np, diag_np = _unpack_chunk_results(packed_host.numpy())
-        poses_list.append(poses_np[:n_real])
-        diag_chunks.append(VOStepDiagnostics(*(a[:n_real] for a in diag_np)))
-        promoted = np.zeros(B, bool)
-        promoted[lo:lo + n_real] = diag_chunks[-1].promoted_keyframe
-        retain_chunk(feats, kp3d, start, promoted)
-        since_ckpt += n_real
-        if checkpoint_path and checkpoint_every and since_ckpt >= checkpoint_every:
-            save_vo_checkpoint(checkpoint_path, end, np.concatenate(poses_list), st)
-            since_ckpt = 0
+            wait(ev, "flush")
+        with span("stream.flush"):
+            poses_np, diag_np = _unpack_chunk_results(packed_host.numpy())
+            poses_list.append(poses_np[:n_real])
+            diag_chunks.append(VOStepDiagnostics(*(a[:n_real] for a in diag_np)))
+            promoted = np.zeros(B, bool)
+            promoted[lo:lo + n_real] = diag_chunks[-1].promoted_keyframe
+            retain_chunk(feats, kp3d, start, promoted)
+            since_ckpt += n_real
+            if checkpoint_path and checkpoint_every and since_ckpt >= checkpoint_every:
+                save_vo_checkpoint(checkpoint_path, end, np.concatenate(poses_list), st)
+                since_ckpt = 0
 
     def record_event():
         if dev.type != "cuda":
@@ -430,65 +441,74 @@ def run_offline_vo_streaming(
         return ev
 
     try:
-        while True:
-            t0 = time.perf_counter()
-            item = q.get()
-            queue_wait += time.perf_counter() - t0
-            if item is None:
-                break
-            start, imgs_d, deps_x, ev = item
-            _Uploader.ready([imgs_d] + ([] if transfer_depth == "sparse" else [deps_x]), ev)
-            n_chunks += 1
-            if transfer_depth == "sparse":
-                # One synchronisation per chunk: it waits for this chunk's keypoint
-                # pixels, and the previous chunk's packed results (copied earlier on
-                # the same stream) are then in host memory too.
-                feats, kp_i16 = extract_and_kp_int16(extractor, imgs_d)
-                kp_host = _to_host(kp_i16)
-                wait(record_event())
-                d2h_bytes += kp_i16.numel() * 2
-                flush(synced=True)
-                z16 = torch.from_numpy(gather_depth_u16mm(deps_x, kp_host.numpy()))
-                if dev.type == "cuda":
-                    z16 = z16.view(torch.int16).pin_memory().to(dev, non_blocking=True)
-                h2d_sparse += z16.numel() * 2
-                kp3d = backproject_sparse(feats.kp, z16, Kd)
-            else:
-                feats, kp3d = extract_and_backproject(extractor, imgs_d, deps_x, Kd)
+        for k in itertools.count():
+            # Chunk k: spans stream.chunk > queue_wait, extract, sync_wait,
+            # depth_gather, engine.chunk, pack, flush (the last for chunk k - 1).
+            with span("stream.chunk", chunk=k):
+                with timed("stream.queue_wait") as t:
+                    item = q.get()
+                queue_wait += t.seconds
+                if item is None:
+                    flush()
+                    break
+                start, imgs_d, deps_x, ev = item
+                _Uploader.ready([imgs_d] + ([] if transfer_depth == "sparse" else [deps_x]),
+                                ev)
+                n_chunks += 1
+                if transfer_depth == "sparse":
+                    # One synchronisation per chunk: it waits for this chunk's keypoint
+                    # pixels, and the previous chunk's packed results (copied earlier
+                    # on the same stream) are then in host memory too.
+                    with span("stream.extract", device=True, rows=imgs_d.shape[0]):
+                        feats, kp_i16 = extract_and_kp_int16(extractor, imgs_d)
+                        kp_host = _to_host(kp_i16)
+                        kp_ev = record_event()
+                    wait(kp_ev, "readback")
+                    d2h_bytes += kp_i16.numel() * 2
+                    flush(synced=True)
+                    with span("stream.depth_gather"):
+                        z16 = torch.from_numpy(gather_depth_u16mm(deps_x, kp_host.numpy()))
+                        if dev.type == "cuda":
+                            z16 = z16.view(torch.int16).pin_memory().to(dev,
+                                                                         non_blocking=True)
+                        h2d_sparse += z16.numel() * 2
+                        kp3d = backproject_sparse(feats.kp, z16, Kd)
+                else:
+                    with span("stream.extract", device=True, rows=imgs_d.shape[0]):
+                        feats, kp3d = extract_and_backproject(extractor, imgs_d, deps_x, Kd)
 
-            B = feats.kp.shape[0]
-            end = min(start + B, n_frames)
-            if end <= next_frame:
-                flush()                       # keep feat_chunks in frame order
-                retain_chunk(feats, kp3d, start, np.zeros(B, bool))
-                continue                      # resumed past this chunk entirely
-            lo = max(next_frame - start, 0)   # first unprocessed row in this chunk
-
-            if state is None:
-                state = engine.initial_state(feats.kp[0], feats.desc[0],
-                                             feats.valid[0], kp3d[0])
-                poses_list.append(np.eye(4, dtype=np.float32)[None])
-                next_frame = 1
-                lo = 1
-                if end <= 1:
+                B = feats.kp.shape[0]
+                end = min(start + B, n_frames)
+                if end <= next_frame:
+                    flush()                       # keep feat_chunks in frame order
                     retain_chunk(feats, kp3d, start, np.zeros(B, bool))
-                    continue
-            ids = torch.arange(start + lo, start + B, dtype=torch.int32, device=dev)
-            t0 = time.perf_counter()
-            state, poses, diag = engine.run_chunk(
-                state, feats.kp[lo:], feats.desc[lo:], feats.valid[lo:], kp3d[lo:],
-                ids, Kd)
-            engine_s += time.perf_counter() - t0
-            n_real = end - (start + lo)       # drop tail padding rows
-            packed = _pack_chunk_results(poses, diag)
-            packed_host = _to_host(packed)
-            d2h_bytes += packed.numel() * 4
-            packed_ev = record_event()
-            flush()                           # read chunk i-1 while chunk i computes
-            pending = (start, B, lo, n_real, end, feats, kp3d, packed_host, packed_ev,
-                       state)
-            next_frame = end
-        flush()
+                    continue                      # resumed past this chunk entirely
+                lo = max(next_frame - start, 0)   # first unprocessed row in this chunk
+
+                if state is None:
+                    state = engine.initial_state(feats.kp[0], feats.desc[0],
+                                                 feats.valid[0], kp3d[0])
+                    poses_list.append(np.eye(4, dtype=np.float32)[None])
+                    next_frame = 1
+                    lo = 1
+                    if end <= 1:
+                        retain_chunk(feats, kp3d, start, np.zeros(B, bool))
+                        continue
+                with timed("engine.chunk", rows=B - lo) as t:
+                    state, poses, diag = engine.run_chunk(
+                        state, feats.kp[lo:], feats.desc[lo:], feats.valid[lo:], kp3d[lo:],
+                        range(start + lo, start + B), Kd)
+                engine_s += t.seconds
+                n_real = end - (start + lo)       # drop tail padding rows
+                with span("stream.pack"):
+                    packed = _pack_chunk_results(poses, diag)
+                    packed_host = _to_host(packed)
+                    d2h_bytes += packed.numel() * 4
+                    packed_ev = record_event()
+                flush()                           # read chunk i-1 while chunk i computes
+                pending = (start, B, lo, n_real, end, feats, kp3d, packed_host, packed_ev,
+                           state)
+                next_frame = end
     finally:
         stop.set()
         worker.join()

@@ -28,6 +28,7 @@ from vo_tpu_torch.estimation.pnp import PnPConfig, pnp_ransac
 from vo_tpu_torch.geometry.se3 import orthonormalize_pose, pose_inverse
 from vo_tpu_torch.matching.matchers import mutual_nn_match, ratio_match, ratio_mutual_nn_match
 from vo_tpu_torch.ops.match import ratio_match_fused, ratio_mutual_nn_match_fused
+from vo_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -104,7 +105,8 @@ class VOEngine:
 
     def _step(self, K, state: VOState, kp, desc, valid, kp3d, kp3d_valid, frame_id, key):
         cfg = self.config
-        m = self._match(state.ref_desc, desc, state.ref_valid, valid)
+        with span("engine.match"):
+            m = self._match(state.ref_desc, desc, state.ref_valid, valid)
 
         cur_kp_m = kp[m.idx]
         cur_3d_m = kp3d[m.idx]
@@ -165,15 +167,25 @@ class VOEngine:
     def run_chunk(self, state: VOState, kp, desc, valid, kp3d, frame_ids, K):
         """Step over a chunk of frames with an explicit carry.
 
+        ``frame_ids``: (C,) ints, or a ``range`` (made on the device, and the host
+        knows each step's frame: the ``frame`` of its ``engine.step`` span).
         Returns (state, poses (C, 4, 4), diagnostics of (C,) tensors).
         """
         kp3d_valid = self._depth_valid(valid, kp3d)
-        frame_ids = torch.as_tensor(frame_ids, device=kp.device).to(torch.int32)
+        if isinstance(frame_ids, range):
+            frames = frame_ids
+            frame_ids = torch.arange(frames.start, frames.stop, dtype=torch.int32,
+                                     device=kp.device)
+        else:
+            frames = None
+            frame_ids = torch.as_tensor(frame_ids, device=kp.device).to(torch.int32)
         keys = prng.fold_in(prng.key(self.config.seed, device=kp.device), frame_ids)
         poses, diags = [], []
         for i in range(kp.shape[0]):
-            state, pose, diag = self._step(K, state, kp[i], desc[i], valid[i], kp3d[i],
-                                           kp3d_valid[i], frame_ids[i], keys[i])
+            with span("engine.step", frame=None if frames is None else frames[i]):
+                state, pose, diag = self._step(K, state, kp[i], desc[i], valid[i],
+                                               kp3d[i], kp3d_valid[i], frame_ids[i],
+                                               keys[i])
             poses.append(pose)
             diags.append(diag)
         diag = VOStepDiagnostics(*(torch.stack(x) for x in zip(*diags)))
@@ -185,7 +197,6 @@ class VOEngine:
         Frame 0 seeds the keyframe; its emitted pose is ``init_pose`` (identity).
         """
         state = self.initial_state(kp[0], desc[0], valid[0], kp3d[0], init_pose)
-        ids = torch.arange(1, kp.shape[0], dtype=torch.int32, device=kp.device)
         _, poses, diag = self.run_chunk(state, kp[1:], desc[1:], valid[1:], kp3d[1:],
-                                        ids, K)
+                                        range(1, kp.shape[0]), K)
         return torch.cat([state.cur_pose[None], poses]), diag

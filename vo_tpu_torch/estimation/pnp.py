@@ -19,6 +19,7 @@ from vo_tpu_torch.estimation.procrustes import kabsch
 from vo_tpu_torch.geometry.se3 import pose_from_rt, se3_exp
 from vo_tpu_torch.geometry.so3 import hat
 from vo_tpu_torch.ops.smalllinalg import det3x3, smallest_eigvec, solve_spd_small, svd3x3
+from vo_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -163,53 +164,79 @@ def pnp_ransac(
     points_3d (N, 3) keyframe-camera points, points_2d (N, 2) current pixels,
     valid (N,) mask, K (3, 3). points_3d_cur / valid_cur (rgbd) enable the Kabsch bank.
     """
+    with span("pnp.ransac"):
+        with span("pnp.hypotheses"):
+            hyp_poses = _hypotheses(key, points_3d, points_2d, valid, K, cfg,
+                                    points_3d_cur, valid_cur)
+        with span("pnp.score"):
+            res, z = _reproject_residuals(hyp_poses, points_3d, points_2d, K)   # (H, N)
+            inl = (res < cfg.reproj_threshold) & (z > cfg.min_depth) & valid[None, :]
+            counts = inl.sum(dim=-1)
+            best = torch.argmax(counts)
+            best_pose, best_count, best_inl = (_pick(x, best)
+                                               for x in (hyp_poses, counts, inl))
+        if cfg.anneal:
+            with span("pnp.anneal"):
+                pose0, best_count, best_inl = _anneal(best_pose, best_count, best_inl,
+                                                      points_3d, points_2d, valid, K, cfg)
+        else:
+            pose0 = best_pose
+        with span("pnp.refine"):
+            return _refine(pose0, best_count, best_inl, points_3d, points_2d, valid, K,
+                           cfg)
+
+
+def _hypotheses(key, points_3d, points_2d, valid, K, cfg: PnPConfig, points_3d_cur,
+                valid_cur) -> torch.Tensor:
+    """The (H, 4, 4) hypothesis bank: minimal sets drawn from ``key``, then the DLT bank
+    alone, or the Kabsch bank (3/4 of H) and the DLT bank when the frame has depth."""
     x_norm = torch.stack([
         (points_2d[:, 0] - K[0, 2]) / K[0, 0],
         (points_2d[:, 1] - K[1, 2]) / K[1, 1],
     ], dim=-1)
-
     if points_3d_cur is None:
         idx = _sample_indices(key, valid, cfg.n_hypotheses, cfg.sample_size)
-        hyp_poses = _dlt_pose(points_3d[idx], x_norm[idx])
-    else:
-        n_kab = (3 * cfg.n_hypotheses) // 4
-        n_dlt = cfg.n_hypotheses - n_kab
-        v_cur = valid & valid_cur if valid_cur is not None else valid
-        k1, k2 = prng.split(key)
-        idx_k = _sample_indices(k1, v_cur, n_kab, 3)
-        hyp_kab = kabsch(points_3d[idx_k], points_3d_cur[idx_k])
-        idx_d = _sample_indices(k2, valid, n_dlt, cfg.sample_size)
-        hyp_dlt = _dlt_pose(points_3d[idx_d], x_norm[idx_d])
-        hyp_poses = torch.cat([hyp_kab, hyp_dlt], dim=0)
+        return _dlt_pose(points_3d[idx], x_norm[idx])
+    n_kab = (3 * cfg.n_hypotheses) // 4
+    n_dlt = cfg.n_hypotheses - n_kab
+    v_cur = valid & valid_cur if valid_cur is not None else valid
+    k1, k2 = prng.split(key)
+    idx_k = _sample_indices(k1, v_cur, n_kab, 3)
+    hyp_kab = kabsch(points_3d[idx_k], points_3d_cur[idx_k])
+    idx_d = _sample_indices(k2, valid, n_dlt, cfg.sample_size)
+    hyp_dlt = _dlt_pose(points_3d[idx_d], x_norm[idx_d])
+    return torch.cat([hyp_kab, hyp_dlt], dim=0)
 
-    res, z = _reproject_residuals(hyp_poses, points_3d, points_2d, K)     # (H, N)
-    inl = (res < cfg.reproj_threshold) & (z > cfg.min_depth) & valid[None, :]
-    counts = inl.sum(dim=-1)
-    best = torch.argmax(counts)
-    best_pose, best_count, best_inl = (_pick(x, best) for x in (hyp_poses, counts, inl))
 
-    if cfg.anneal:
-        # The JAX package skips the identity-seeded annealed candidate with a lax.cond
-        # unless the banks are weak. Here it is always computed and then selected, so
-        # that no value goes back to the host; the result is that of the cond.
-        n_avail0 = valid.sum()
-        bank_weak = (best_count < 0.5 * n_avail0) | (n_avail0 < 64)
-        anneal = list(cfg.anneal) + [float(cfg.reproj_threshold)] * 4
-        eye4 = torch.eye(4, dtype=points_3d.dtype, device=points_3d.device)
-        pose_id = _gn_refine(eye4, points_3d, points_2d, valid, K, cfg, thresholds=anneal)
-        res_i, z_i = _reproject_residuals(pose_id, points_3d, points_2d, K)
-        inl_i = (res_i < cfg.reproj_threshold) & (z_i > cfg.min_depth) & valid
-        pose_id = torch.where(bank_weak, pose_id, best_pose)
-        count_i = torch.where(bank_weak, inl_i.sum(), best_count)
-        inl_i = torch.where(bank_weak, inl_i, best_inl)
+def _anneal(best_pose, best_count, best_inl, points_3d, points_2d, valid, K,
+            cfg: PnPConfig):
+    """The identity-seeded annealed candidate against the bank's best -> (pose0,
+    best_count, best_inl).
 
-        use_id = count_i > best_count
-        pose0 = torch.where(use_id, pose_id, best_pose)
-        best_count = torch.maximum(best_count, count_i)
-        best_inl = torch.where(use_id, inl_i, best_inl)
-    else:
-        pose0 = best_pose
+    The JAX package skips the candidate with a lax.cond unless the banks are weak.
+    Here it is always computed and then selected, so that no value goes back to the
+    host; the result is that of the cond."""
+    n_avail0 = valid.sum()
+    bank_weak = (best_count < 0.5 * n_avail0) | (n_avail0 < 64)
+    anneal = list(cfg.anneal) + [float(cfg.reproj_threshold)] * 4
+    eye4 = torch.eye(4, dtype=points_3d.dtype, device=points_3d.device)
+    pose_id = _gn_refine(eye4, points_3d, points_2d, valid, K, cfg, thresholds=anneal)
+    res_i, z_i = _reproject_residuals(pose_id, points_3d, points_2d, K)
+    inl_i = (res_i < cfg.reproj_threshold) & (z_i > cfg.min_depth) & valid
+    pose_id = torch.where(bank_weak, pose_id, best_pose)
+    count_i = torch.where(bank_weak, inl_i.sum(), best_count)
+    inl_i = torch.where(bank_weak, inl_i, best_inl)
 
+    use_id = count_i > best_count
+    pose0 = torch.where(use_id, pose_id, best_pose)
+    return pose0, torch.maximum(best_count, count_i), torch.where(use_id, inl_i, best_inl)
+
+
+def _refine(pose0, best_count, best_inl, points_3d, points_2d, valid, K,
+            cfg: PnPConfig) -> PnPResult:
+    """The final Gauss-Newton polish from ``pose0``, rescored; keeps whichever of the
+    refined pose and the best candidate has more inliers, and applies the acceptance
+    rule."""
     pose = _gn_refine(pose0, points_3d, points_2d, valid, K, cfg)
 
     res_f, z_f = _reproject_residuals(pose, points_3d, points_2d, K)

@@ -22,6 +22,7 @@ from vo_tpu_torch.features.detect import _top_k
 from vo_tpu_torch.models.patchnet import PatchNetSpec, apply_patchnet, params_to
 from vo_tpu_torch.models.r2d2_extractor import normalize_images
 from vo_tpu_torch.ops.image import maxpool2d_same, resize_bilinear
+from vo_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -74,36 +75,42 @@ def _extract_pyramid(params, images, spec: PatchNetSpec, cfg: MultiscaleConfig,
     B, dev = images.shape[0], images.device
     bidx = torch.arange(B, device=dev)[:, None]
     all_kp, all_desc, all_score, all_valid = [], [], [], []
-    for s in pyramid_scales(H, W, cfg):
-        nh, nw = _level_hw(H, W, s)
-        out = apply_patchnet(params, spec, resize_bilinear(images, (nh, nw)))
-        rel, rep, desc = out["reliability"], out["repeatability"], out["descriptors"]
+    with span("r2d2.extract", rows=B):
+        for s in pyramid_scales(H, W, cfg):
+            nh, nw = _level_hw(H, W, s)
+            with span("r2d2.level", scale=s, h=nh, w=nw):
+                with span("r2d2.network", device=True):
+                    out = apply_patchnet(params, spec, resize_bilinear(images, (nh, nw)))
+                    rel, rep = out["reliability"], out["repeatability"]
+                with span("r2d2.select", device=True):
+                    keep = ((rep >= maxpool2d_same(rep, cfg.nms_size))
+                            & (rep >= cfg.rep_thr) & (rel >= cfg.rel_thr))
+                    col = torch.arange(nw, device=dev)
+                    row = torch.arange(nh, device=dev)[:, None]
+                    b = cfg.border
+                    keep &= (col >= b) & (col < nw - b) & (row >= b) & (row < nh - b)
 
-        keep = ((rep >= maxpool2d_same(rep, cfg.nms_size))
-                & (rep >= cfg.rep_thr) & (rel >= cfg.rel_thr))
-        col = torch.arange(nw, device=dev)
-        row = torch.arange(nh, device=dev)[:, None]
-        b = cfg.border
-        keep &= (col >= b) & (col < nw - b) & (row >= b) & (row < nh - b)
+                    score = torch.where(keep, rel * rep, float("-inf"))
+                    top, idx = _top_k(score.reshape(B, nh * nw),
+                                      min(cfg.per_scale_k, nh * nw))
+                    y, x = idx // nw, idx % nw
+                    valid = torch.isfinite(top)
+                    yf, xf = y.to(torch.float32), x.to(torch.float32)
+                    all_kp.append(torch.stack([xf * (W / nw), yf * (H / nh),
+                                               torch.full_like(xf, 32.0 / s)], dim=-1))
+                    all_desc.append(torch.where(valid[..., None],
+                                                out["descriptors"][bidx, y, x], 0.0))
+                    all_score.append(top)
+                    all_valid.append(valid)
 
-        score = torch.where(keep, rel * rep, float("-inf"))
-        top, idx = _top_k(score.reshape(B, nh * nw), min(cfg.per_scale_k, nh * nw))
-        y, x = idx // nw, idx % nw
-        valid = torch.isfinite(top)
-        yf, xf = y.to(torch.float32), x.to(torch.float32)
-        all_kp.append(torch.stack([xf * (W / nw), yf * (H / nh),
-                                   torch.full_like(xf, 32.0 / s)], dim=-1))
-        all_desc.append(torch.where(valid[..., None], desc[bidx, y, x], 0.0))
-        all_score.append(top)
-        all_valid.append(valid)
-
-    kp, desc = torch.cat(all_kp, dim=1), torch.cat(all_desc, dim=1)
-    score, valid = torch.cat(all_score, dim=1), torch.cat(all_valid, dim=1)
-    top, idx = _top_k(score, min(cfg.top_k, score.shape[1]))
-    fin = torch.isfinite(top)
-    return MultiscaleFeatures(kp=kp[bidx, idx], desc=desc[bidx, idx],
-                              score=torch.where(fin, top, 0.0),
-                              valid=valid[bidx, idx] & fin)
+        with span("r2d2.merge", device=True):
+            kp, desc = torch.cat(all_kp, dim=1), torch.cat(all_desc, dim=1)
+            score, valid = torch.cat(all_score, dim=1), torch.cat(all_valid, dim=1)
+            top, idx = _top_k(score, min(cfg.top_k, score.shape[1]))
+            fin = torch.isfinite(top)
+            return MultiscaleFeatures(kp=kp[bidx, idx], desc=desc[bidx, idx],
+                                      score=torch.where(fin, top, 0.0),
+                                      valid=valid[bidx, idx] & fin)
 
 
 def extract_multiscale(params, spec: PatchNetSpec, images,

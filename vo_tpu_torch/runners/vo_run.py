@@ -5,6 +5,7 @@ Usage:
     python -m vo_tpu_torch.runners.vo_run --config cfg.yaml --eval        # + score vs GT
     python -m vo_tpu_torch.runners.vo_run --config cfg.yaml --refine      # BA + pose graph
     python -m vo_tpu_torch.runners.vo_run --config cfg.yaml --device cpu
+    python -m vo_tpu_torch.runners.vo_run --config cfg.yaml --limit 32 --trace prof/
 
 Reads *.png + *_depth.npy pairs from ``image_path`` in fixed-size batches: the native
 C++ loader (``native/vo_loader.cpp``, built into ``vo_tpu_torch/_build/`` at first use)
@@ -13,7 +14,9 @@ work (``run_offline_vo_streaming``). Optionally refines the trajectory (``--refi
 ``engine/refine.py::refine_full``, windowed BA and loop closure), writes
 ``<output_filename>.npy`` (stacked 4x4 poses), renders the reference's
 ``visualize_results`` overlays and trajectory plot into ``<output_filename>_viz/``, and
-evaluates against ``gt_txt_file_path``.
+evaluates against ``gt_txt_file_path``. ``--trace DIR`` profiles the streaming run
+(``utils/profiling.py::trace``): ``DIR/trace.json``, the profiler's CPU and CUDA
+events, and ``DIR/spans.json``, the port's spans, on one time base.
 
 ``feature_extractor`` is ``orb``, ``sift``, ``surf`` (box-filter Hessian + SURF-64,
 matched in fp32) or ``r2d2`` (the published ``faster2d2_WASF_N16`` network, read from
@@ -25,6 +28,7 @@ is read.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -41,6 +45,7 @@ from vo_tpu_torch.features.extractor import OrbLikeExtractor
 from vo_tpu_torch.io.dataset import RGBDSequence
 from vo_tpu_torch.io.native import NativeRGBDSequence
 from vo_tpu_torch.io.poses import kitti_gt_to_modified_txt, save_poses_npy
+from vo_tpu_torch.utils import profiling
 
 
 def build_extractor(cfg: RunConfig):
@@ -180,6 +185,9 @@ def _parser() -> argparse.ArgumentParser:
                          "keypoints' depths")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises if there is no GPU)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="profile the streaming run into DIR/trace.json and the port's "
+                         "spans into DIR/spans.json (slow: keep --limit small)")
     return ap
 
 
@@ -217,11 +225,12 @@ def run(argv=None) -> RunResult:
     stats: dict = {}
     t0 = time.perf_counter()
     try:
-        poses, diag, (feats, kp3d, feat_rows) = run_offline_vo_streaming(
-            batches, n, K, vo_config=cfg.vo, extractor=extractor,
-            checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
-            resume_from=args.resume, retain=args.retain,
-            transfer_depth=args.depth_transfer, device=dev, stats=stats)
+        with profiling.trace(args.trace) if args.trace else contextlib.nullcontext():
+            poses, diag, (feats, kp3d, feat_rows) = run_offline_vo_streaming(
+                batches, n, K, vo_config=cfg.vo, extractor=extractor,
+                checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
+                resume_from=args.resume, retain=args.retain,
+                transfer_depth=args.depth_transfer, device=dev, stats=stats)
     finally:
         if nat is not None:
             nat.close()
