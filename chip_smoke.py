@@ -13,15 +13,19 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
    Nb > 16384, SIFT-like descriptors, a misaligned view, all-invalid columns, and
    calls in a row that grow and shrink the cached scratch;
 4. main path: the port's ``run_offline_vo`` on the 160-frame 376 x 1232 synthetic
-   RGB-D slalom (2048 keypoints, 512 hypotheses); asserts the trajectory gate, one
-   wgmma launch per tracked frame, and identical poses from the plain matcher (first 32
-   frames);
+   RGB-D slalom (2048 keypoints, 512 hypotheses), which captures the engine step's CUDA
+   graph (its seconds printed and kept as a phase of their own); asserts the trajectory
+   gate, one wgmma launch per tracked frame (a replay counts the launch it captured),
+   one ``top2_wgmma_kernel`` in the device trace per replayed step of a 16-step chunk,
+   and identical poses from the plain matcher (first 32 frames);
 5. float-mode path: the engine with the ``ratio_mutual_nn`` matcher on the first 16
    frames' descriptors as fp32 unit vectors (+-1/16); asserts one SIMT launch per
-   tracked frame and identical poses from the plain matcher;
+   tracked frame, one ``top2_simt_kernel`` in the device trace per replayed step, and
+   identical poses from the plain matcher;
 6. SIFT-config path: ``run_offline_vo`` on the same frames with the multi-scale DoG +
    oriented gradhist extractor and the ``ratio_float`` matcher (``bench.py:337-386``);
-   asserts the gate and one SIMT launch per tracked frame; the plain-matcher engine on
+   asserts the gate, one SIMT launch per tracked frame and one ``top2_simt_kernel`` in
+   the device trace per replayed step of a 16-step chunk; the plain-matcher engine on
    the first 32 frames' features passes the gate too; times extraction and the engine;
 7. timing: extraction and the engine over the first 16 frames, and the kernels
    (wgmma at 2048 x 2048 x 256 bf16;
@@ -129,7 +133,9 @@ card (``runners/bench.py`` times the workloads alone). The kernels' own times (p
 7) are taken after the second process has ended, and phase 15 runs alone.
 
 The last line of standard output is one JSON object with ``ok`` and the device; the
-line before it lists each kernel and shape with its launches, error, times and bound.
+line before it lists each kernel and shape with its launches, error, times and bound,
+and, for the traced paths, the replayed steps beside the kernel's executions in the
+device trace.
 """
 
 from __future__ import annotations
@@ -309,14 +315,9 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _device_profile(fn):
-    """(device-busy ms, CUDA kernels launched, top kernels) of one ``fn()`` run under
-    torch.profiler; (None, None, []) when the trace holds no device time.
-
-    Traces the device activity only and reads the raw trace events: building the
-    profiler's event tree (``key_averages``) for the ~10,900 launches of each engine
-    step takes minutes.
-    """
+def _device_ops(fn) -> dict:
+    """{device operation name: (executions, ns)} of one ``fn()`` run under torch.profiler:
+    each kernel of a CUDA-graph replay is an execution of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -329,6 +330,40 @@ def _device_profile(fn):
         if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
             count, ns = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (count + 1, ns + e.duration_ns())
+    return by_name
+
+
+def _traced_replays(name, engine, args, kernel) -> dict:
+    """``engine.run_sequence(*args)`` on a signature already captured, under the
+    profiler: every step must replay the step's graph, and the device trace must show
+    one execution of the match ``kernel`` per replay and none of the other.
+    -> {"replays": n, kernel: executions}."""
+    from vo_tpu_torch.engine.vo import step_counts
+
+    before = dict(step_counts)
+    ops = _device_ops(lambda: engine.run_sequence(*args))
+    steps = {k: step_counts[k] - before[k] for k in ("graph_captures", "graph_replays",
+                                                      "eager_steps")}
+    runs = {k: sum(c for op, (c, _) in ops.items() if k in op) for k in KERNELS}
+    n = args[0].shape[0] - 1
+    print(f"{name}, {n} steps under the profiler: {steps}; match kernels in the device "
+          f"trace {runs}")
+    want = {k: n if k == kernel else 0 for k in KERNELS}
+    if steps != {"graph_captures": 0, "graph_replays": n, "eager_steps": 0} or runs != want:
+        raise AssertionError(f"{name}: {steps}, trace {runs}; expected {n} replays and "
+                             f"{want}")
+    return {"replays": n, kernel: runs[kernel]}
+
+
+def _device_profile(fn):
+    """(device-busy ms, CUDA kernels launched, top kernels) of one ``fn()`` run under
+    torch.profiler; (None, None, []) when the trace holds no device time.
+
+    Traces the device activity only and reads the raw trace events: building the
+    profiler's event tree (``key_averages``) for the ~10,900 kernels of each engine
+    step takes minutes.
+    """
+    by_name = _device_ops(fn)
     busy_ns = sum(ns for _, ns in by_name.values())
     if busy_ns <= 0:
         return None, None, []
@@ -2205,7 +2240,7 @@ def _smoke(second, conn, work) -> None:
     phase_s["device"] = time.perf_counter() - t0
 
     from vo_tpu_torch.engine.pipeline import extract_and_backproject, run_offline_vo
-    from vo_tpu_torch.engine.vo import VOConfig, VOEngine
+    from vo_tpu_torch.engine.vo import VOConfig, VOEngine, step_counts
     from vo_tpu_torch.estimation.pnp import PnPConfig
     from vo_tpu_torch.features.extractor import OrbLikeExtractor
     from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
@@ -2264,17 +2299,27 @@ def _smoke(second, conn, work) -> None:
                                       valid_a, valid_b, False, True))
     phase_s["kernel_checks_workload"] = time.perf_counter() - t0
 
-    # Phase 4: main path, counted.
+    # Phase 4: main path, counted; the engine's CUDA graph is captured here.
     t0 = time.perf_counter()
     _reset_counts()
+    steps0 = dict(step_counts)
     poses, diag, (feats, kp3d) = run_offline_vo(
         imgs, deps, K, vo_config=cfg, extractor=extractor,
         extraction_batch=EXTRACT_BATCH, return_features=True, device="cuda")
     counts = _counts()
     launches = counts["wgmma"]
     phase_s["main_path"] = time.perf_counter() - t0
+    steps = {k: step_counts[k] - steps0[k] for k in step_counts}
+    phase_s["main_path_graph_capture"] = steps["capture_s"]
+    print(f"main path engine steps: {steps['graph_captures']} CUDA-graph capture(s) in "
+          f"{steps['capture_s']:.3f} s, {steps['graph_replays']} replays, "
+          f"{steps['eager_steps']} eager")
     if counts != {"wgmma": F - 1, "simt": 0}:
         raise AssertionError(f"main path launches {counts}, expected {F - 1} wgmma, 0 simt")
+    m = F_TIMED // 2 + 1
+    traced = {"main path": _traced_replays(
+        "main path", VOEngine(cfg, device=dev),
+        (feats.kp[:m], feats.desc[:m], feats.valid[:m], kp3d[:m], Kd), "top2_wgmma_kernel")}
     if not np.isfinite(poses).all() or poses.shape != (F, 4, 4):
         raise AssertionError(f"bad poses: shape {poses.shape}, finite {np.isfinite(poses).all()}")
     print(f"main path keyframes {int(diag.promoted_keyframe.sum())}")
@@ -2300,6 +2345,8 @@ def _smoke(second, conn, work) -> None:
     counts_f = _counts()
     if counts_f != {"wgmma": 0, "simt": F_FLOAT - 1}:
         raise AssertionError(f"float path launches {counts_f}, expected {F_FLOAT - 1} simt")
+    traced["float-mode path"] = _traced_replays(
+        "float-mode path", VOEngine(VOConfig(**fcfg), device=dev), fargs, "top2_simt_kernel")
     poses_fp, _ = VOEngine(VOConfig(**fcfg, use_match_kernel=False),
                            device=dev).run_sequence(*fargs)
     same_f = bool(torch.equal(poses_f.cpu(), poses_fp.cpu()))
@@ -2325,6 +2372,11 @@ def _smoke(second, conn, work) -> None:
     counts_s = _counts()
     if counts_s != {"wgmma": 0, "simt": F - 1}:
         raise AssertionError(f"SIFT path launches {counts_s}, expected {F - 1} simt, 0 wgmma")
+    m = F_TIMED // 2 + 1
+    traced["SIFT path"] = _traced_replays(
+        "SIFT path", VOEngine(VOConfig(**sift_cfg), device=dev),
+        (feats_s.kp[:m], feats_s.desc[:m], feats_s.valid[:m], kp3d_s[:m], Kd),
+        "top2_simt_kernel")
     if feats_s.desc.shape[1:] != (2048, 128) or feats_s.desc.dtype != torch.bfloat16:
         raise AssertionError(f"SIFT descriptors {tuple(feats_s.desc.shape)} {feats_s.desc.dtype}")
     print(f"SIFT path: {int(feats_s.valid.sum(1).float().mean())} valid keypoints/frame, "
@@ -2462,6 +2514,14 @@ def _smoke(second, conn, work) -> None:
                f"distributed dry run (inference_rank over one NCCL rank, {F_DIST} frames)":
                    distributed["launches"]}
     entries[0].update(launches=sum(by_path.values()), launches_by_path=by_path)
+    # The counters beside the device trace: replayed steps and the kernel's executions.
+    entries[0]["traced_replays"] = {f"main path ({traced['main path']['replays']} steps)":
+                                    traced["main path"]}
+    entries[1]["traced_replays"] = {f"SIFT path ({traced['SIFT path']['replays']} steps)":
+                                    traced["SIFT path"]}
+    entries[2]["traced_replays"] = {
+        f"float-mode path ({traced['float-mode path']['replays']} steps)":
+            traced["float-mode path"]}
     for e in entries:
         e["max_abs_err"] = max(errs["wgmma" if "wgmma" in e["name"] else "simt"])
 

@@ -24,7 +24,12 @@ repeat bit for bit, and the MMA harness's matches go through the SIMT kernel. Th
 distributed layer runs over a one-rank NCCL group (the card's machine has one GPU):
 the sharded BA against ``bundle_adjust``, the data-parallel step against the plain
 one, and the dry run's CLI. The benchmark (``runners/bench.py``) runs at a small size
-through both kernels.
+through both kernels. The RGB-D engine's CUDA graph: replayed steps equal ``_step``'s
+eager steps bit for bit (wgmma, SIMT and plain matchers), one capture per input
+signature across engines (not per seed; per engine class) in one shared memory pool,
+``OnlineVO`` and a capture inside a stream replaying, the match counters counting
+replays and not the capture and the device trace showing one match kernel per replayed
+step, and no host sync either way.
 """
 
 import time
@@ -641,11 +646,22 @@ def test_engine_steps_make_no_host_sync_of_their_own(cuda_device):
                                           torch.from_numpy(deps).to(cuda_device), Kd)
     args = (feats.kp, feats.desc, feats.valid, kp3d, Kd)
     rgbd = VOEngine(VOConfig(pnp=PnPConfig(n_hypotheses=256)), device=cuda_device)
-    rgbd.run_sequence(*args)                                   # warm-up
+    rgbd.run_sequence(*args)                                   # warm-up (the capture)
     assert _syncs_by_file(lambda: rgbd.run_sequence(*args)) == {}
     profiling.start()                                          # the spans add none
     try:
         assert _syncs_by_file(lambda: rgbd.run_sequence(*args)) == {}
+    finally:
+        spans = profiling.stop()
+    steps = [s for s in spans if s.name == "engine.step"]
+    assert [s.attrs.get("graph") for s in steps] == [True] * 5
+    assert "pnp.ransac" not in [s.name for s in spans]         # recorded at the capture
+    state = rgbd.initial_state(*(a[0] for a in args[:4]))
+    eager = lambda: _eager_chunk(rgbd, state, *(a[1:] for a in args[:4]), range(1, 6),  # noqa: E731
+                                 Kd)
+    profiling.start()                                          # the same run, eagerly
+    try:
+        assert _syncs_by_file(eager) == {}
     finally:
         spans = profiling.stop()
     assert [s.name for s in spans].count("pnp.ransac") == 5
@@ -655,6 +671,257 @@ def test_engine_steps_make_no_host_sync_of_their_own(cuda_device):
     mono.run_sequence(*args)
     syncs = _syncs_by_file(lambda: mono.run_sequence(*args))
     assert set(syncs) == {"triangulation.py"} and syncs["triangulation.py"] <= 2 * 5, syncs
+
+
+def _eager_chunk(engine, state, kp, desc, valid, kp3d, frames, K):
+    """``VOEngine.run_chunk`` with each step through ``_step`` on the current stream."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.engine.vo import VOStepDiagnostics
+
+    kp3d_valid = engine._depth_valid(valid, kp3d)
+    frame_ids = torch.arange(frames.start, frames.stop, dtype=torch.int32,
+                             device=kp.device)
+    keys = prng.fold_in(prng.key(engine.config.seed, device=kp.device), frame_ids)
+    poses, diags = [], []
+    for i in range(kp.shape[0]):
+        state, pose, diag = engine._step(K, state, kp[i], desc[i], valid[i], kp3d[i],
+                                         kp3d_valid[i], frame_ids[i], keys[i])
+        poses.append(pose)
+        diags.append(diag)
+    return state, torch.stack(poses), VOStepDiagnostics(*(torch.stack(x) for x in zip(*diags)))
+
+
+def _graph_drive(cuda_device, n=10, max_kp=512):
+    """Features of a 240 x 320 drive whose frame 5, if it has one, is destroyed (noise,
+    no depth), so that the engine rejects a frame and promotes keyframes; the card's K."""
+    from vo_tpu_torch.engine.pipeline import extract_and_backproject
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, _ = render_sequence(n, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+    if n > 5:
+        imgs[5] = np.random.default_rng(0).uniform(0, 255, imgs[5].shape)
+        deps[5] = 0.0
+    Kd = torch.from_numpy(K_SMALL).to(cuda_device)
+    feats, kp3d = extract_and_backproject(OrbLikeExtractor(max_kp=max_kp),
+                                          torch.from_numpy(imgs).to(cuda_device),
+                                          torch.from_numpy(deps).to(cuda_device), Kd)
+    return [feats.kp, feats.desc, feats.valid, kp3d], Kd
+
+
+@pytest.fixture
+def fresh_graphs(monkeypatch):
+    """An empty cache of the step's graphs and a new capture stream and memory pool, so
+    that the test's first step captures into a pool of its own; the test's graphs are
+    dropped at its end."""
+    from vo_tpu_torch.engine import vo
+
+    monkeypatch.setattr(vo, "_graphs", {})
+    monkeypatch.setattr(vo, "_capture_home", {})
+
+
+def _kernel_runs(fn) -> dict:
+    """-> {kernel name: executions} of ``fn()``'s match kernels in the device trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    runs = {"top2_wgmma_kernel": 0, "top2_simt_kernel": 0}
+    for e in prof.profiler.kineto_results.events():
+        for name in runs:
+            if e.device_type() == torch.autograd.DeviceType.CUDA and name in e.name():
+                runs[name] += 1
+    return runs
+
+
+def _graph_config(matcher="ratio_binary", seed=8214, use_match_kernel=True):
+    """tests/test_torch_streaming.py's engine."""
+    from vo_tpu_torch.engine.vo import VOConfig
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+
+    return VOConfig(matcher=matcher, kf_min_matches=60, kf_min_inliers=30, seed=seed,
+                    pnp=PnPConfig(min_inliers=15, n_hypotheses=256),
+                    use_match_kernel=use_match_kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matcher, kernel", [("ratio_binary", True), ("ratio_float", True),
+                                             ("mutual_nn", False), ("ratio_binary", False)])
+def test_replayed_steps_equal_eager_steps_bit_for_bit(cuda_device, fresh_graphs, matcher,
+                                                      kernel):
+    """Two chunks through the CUDA graph against the same steps through ``_step``:
+    poses, diagnostics and carried state identical, on a drive with a rejected frame
+    and promoted keyframes; the state handed back is a copy, which the next chunk's
+    replays leave as it was. ``ratio_float`` takes the SIMT kernel (unit fp32
+    descriptors), ``ratio_binary`` the wgmma kernel or, without it, the plain ratio
+    matcher; ``mutual_nn`` is plain torch."""
+    from vo_tpu_torch.engine.vo import VOEngine, step_counts
+
+    arrs, Kd = _graph_drive(cuda_device)
+    if matcher == "ratio_float":
+        arrs[1] = arrs[1].float() / 16.0
+    eng = VOEngine(_graph_config(matcher, seed=101, use_match_kernel=kernel),
+                   device=cuda_device)
+    s0 = eng.initial_state(*(a[0] for a in arrs))
+    n = arrs[0].shape[0]
+    before = dict(step_counts)
+    sa, pa, da = eng.run_chunk(s0, *(a[1:6] for a in arrs), range(1, 6), Kd)
+    kept = [t.clone() for t in sa]
+    sb, pb, db = eng.run_chunk(sa, *(a[6:] for a in arrs), range(6, n), Kd)
+    assert step_counts["graph_replays"] - before["graph_replays"] == n - 2
+    assert all(torch.equal(a, b) for a, b in zip(sa, kept))
+    ea = _eager_chunk(eng, s0, *(a[1:6] for a in arrs), range(1, 6), Kd)
+    eb = _eager_chunk(eng, ea[0], *(a[6:] for a in arrs), range(6, n), Kd)
+    for got, want in (((sa, pa, da), ea), ((sb, pb, db), eb)):
+        for g, w in zip((*got[0], got[1], *got[2]), (*want[0], want[1], *want[2])):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    accepted = torch.cat([da.accepted, db.accepted]).cpu()
+    promoted = torch.cat([da.promoted_keyframe, db.promoted_keyframe]).cpu()
+    assert not accepted.all() and accepted.float().mean() > 0.5 and promoted.any()
+
+
+@pytest.mark.cuda
+def test_engines_share_one_capture_per_signature(cuda_device, fresh_graphs):
+    """Two engines with one config capture once between them and give the same bits; a
+    new keypoint budget (a new shape) captures anew."""
+    from vo_tpu_torch.engine import vo
+
+    arrs, Kd = _graph_drive(cuda_device, n=5)
+    cfg = _graph_config(seed=102)
+    before = dict(vo.step_counts)
+    p1, d1 = vo.VOEngine(cfg, device=cuda_device).run_sequence(*arrs, Kd)
+    p2, d2 = vo.VOEngine(cfg, device=cuda_device).run_sequence(*arrs, Kd)
+    counts = {k: vo.step_counts[k] - before[k] for k in ("graph_captures",
+                                                          "graph_replays", "eager_steps")}
+    assert counts == {"graph_captures": 1, "graph_replays": 7, "eager_steps": 1}
+    assert len(vo._graphs) == 1 and vo.step_counts["capture_s"] > 0.0
+    assert torch.equal(p1, p2) and all(torch.equal(a, b) for a, b in zip(d1, d2))
+    small, Kd = _graph_drive(cuda_device, n=3, max_kp=256)
+    vo.VOEngine(cfg, device=cuda_device).run_sequence(*small, Kd)
+    assert vo.step_counts["graph_captures"] - before["graph_captures"] == 2
+    assert len(vo._graphs) == 2
+
+
+@pytest.mark.cuda
+def test_graph_key_leaves_out_the_seed_and_keeps_the_class(cuda_device, fresh_graphs):
+    """Configs that differ in the seed and the depth limits share a graph, and each
+    engine's replays equal its own eager steps (its keys and its depth mask are inputs);
+    another ratio, or a subclass of the engine, captures a graph of its own, which
+    reuses the shared pool's memory: its capture reserves far less than the first."""
+    import dataclasses
+
+    from vo_tpu_torch.engine import vo
+
+    arrs, Kd = _graph_drive(cuda_device, n=6)
+    cfg = _graph_config(seed=106)
+    other = dataclasses.replace(cfg, seed=107, min_point_depth=0.5, max_point_depth=30.0)
+
+    class Sub(vo.VOEngine):
+        pass
+
+    grown = []
+    for engine, captures in ((vo.VOEngine(cfg, device=cuda_device), 1),
+                             (vo.VOEngine(other, device=cuda_device), 0),
+                             (vo.VOEngine(dataclasses.replace(cfg, ratio=0.8),
+                                          device=cuda_device), 1),
+                             (Sub(cfg, device=cuda_device), 1)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved, before = torch.cuda.memory_reserved(), dict(vo.step_counts)
+        s0 = engine.initial_state(*(a[0] for a in arrs))
+        got = engine.run_chunk(s0, *(a[1:] for a in arrs), range(1, 6), Kd)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert vo.step_counts["graph_captures"] - before["graph_captures"] == captures
+        assert vo.step_counts["graph_replays"] - before["graph_replays"] == 5 - captures
+        if captures:
+            grown.append(torch.cuda.memory_reserved() - reserved)
+        want = _eager_chunk(engine, s0, *(a[1:] for a in arrs), range(1, 6), Kd)
+        for g, w in zip((*got[0], got[1], *got[2]), (*want[0], want[1], *want[2])):
+            assert torch.equal(g, w)
+    assert len(vo._graphs) == 3
+    print(f"memory reserved by each capture: {grown}")
+    assert max(grown[1:]) < grown[0] / 2, grown
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matcher, kernel", [("ratio_binary", "launch_wgmma"),
+                                             ("ratio_float", "launch_simt")])
+def test_match_counters_count_replays_and_not_the_capture(cuda_device, fresh_graphs, matcher,
+                                                          kernel):
+    """One match-kernel launch per step, eager or replayed; none for the capture; and in
+    the device trace one execution of the kernel per replayed step."""
+    from vo_tpu_torch.engine import vo
+
+    arrs, Kd = _graph_drive(cuda_device, n=6)
+    if matcher == "ratio_float":
+        arrs[1] = arrs[1].float() / 16.0
+    counter = getattr(match, kernel)
+    other = match.launch_simt if counter is match.launch_wgmma else match.launch_wgmma
+    cfg = _graph_config(matcher, seed=103)
+    for captures in (1, 0):
+        before, n0, m0 = dict(vo.step_counts), counter.launches, other.launches
+        runs = _kernel_runs(lambda: vo.VOEngine(cfg, device=cuda_device).run_sequence(
+            *arrs, Kd))
+        assert vo.step_counts["graph_captures"] - before["graph_captures"] == captures
+        assert vo.step_counts["graph_replays"] - before["graph_replays"] == 5 - captures
+        assert counter.launches - n0 == 5 and other.launches == m0
+        name = "top2_wgmma_kernel" if kernel == "launch_wgmma" else "top2_simt_kernel"
+        assert runs == {"top2_wgmma_kernel": 0, "top2_simt_kernel": 0, name: 5}, runs
+
+
+@pytest.mark.cuda
+def test_online_vo_replays(cuda_device, fresh_graphs):
+    """``OnlineVO`` steps through the graph: its poses are the eager steps' on its own
+    features, and each frame after the first capture is a replay."""
+    from vo_tpu_torch.engine import vo
+    from vo_tpu_torch.engine.online import OnlineVO
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, _ = render_sequence(6, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+    online = OnlineVO(K_SMALL, config=_graph_config(seed=104),
+                      extractor=OrbLikeExtractor(max_kp=512), device=cuda_device)
+    before = dict(vo.step_counts)
+    got = np.stack([online.process_frame(imgs[i], deps[i], i) for i in range(6)])
+    assert vo.step_counts["graph_replays"] - before["graph_replays"] == 4
+    assert vo.step_counts["eager_steps"] - before["eager_steps"] == 1
+    feats = [online._extract(imgs[i], deps[i]) for i in range(6)]
+    arrs = [torch.stack(x) for x in zip(*feats)]
+    state = online.engine.initial_state(*(a[0] for a in arrs))
+    _, poses, diag = _eager_chunk(online.engine, state, *(a[1:] for a in arrs),
+                                  range(1, 6), online.K)
+    np.testing.assert_array_equal(got[1:], poses.cpu().numpy())
+    for a, b in zip(online.last_diagnostics, diag):
+        np.testing.assert_array_equal(a, b[-1].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_capture_inside_a_stream_while_the_loader_uploads(cuda_device, fresh_graphs):
+    """The capture made in the streaming entry's first chunk, while its producer thread
+    stages the next batches: the same poses as a second run that only replays, and the
+    entry's step counts."""
+    from vo_tpu_torch.engine.pipeline import run_offline_vo_streaming
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, _ = render_sequence(12, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+
+    def run():
+        stats: dict = {}
+        batches = ((s, imgs[s:s + 4], deps[s:s + 4]) for s in range(0, 12, 4))
+        poses, _, _ = run_offline_vo_streaming(
+            batches, 12, K_SMALL, vo_config=_graph_config(seed=105),
+            extractor=OrbLikeExtractor(max_kp=512), prefetch=2, transfer_depth="float32",
+            device=cuda_device, stats=stats)
+        return poses, stats
+
+    (p1, s1), (p2, s2) = run(), run()
+    assert (s1["eager_steps"], s1["graph_replays"]) == (1, 10)
+    assert (s2["eager_steps"], s2["graph_replays"]) == (0, 11)
+    np.testing.assert_array_equal(p1, p2)
 
 
 @pytest.mark.cuda

@@ -146,6 +146,68 @@ def test_stats_are_the_span_sums(traced):
     assert stats["chunks"] == 2
 
 
+def test_stats_count_eager_steps_on_the_cpu(traced):
+    """Off CUDA every step runs ``_step`` eagerly: one per frame after the first."""
+    _, stats, spans = traced
+    assert stats["eager_steps"] == F - 1 and stats["graph_replays"] == 0
+    steps = [s for s in spans if s.name == "engine.step"]
+    assert [s.attrs["frame"] for s in steps] == list(range(1, F))
+    assert not any("graph" in s.attrs for s in steps)
+
+
+@pytest.mark.parametrize("change, same", [
+    (dict(seed=1), True), (dict(min_point_depth=0.5, max_point_depth=20.0), True),
+    (dict(ratio=0.8), False), (dict(kf_min_matches=61), False),
+    (dict(pnp=PnPConfig(min_inliers=15, n_hypotheses=128)), False),
+    (dict(matcher="mutual_nn"), False)])
+def test_graph_key_holds_what_the_step_reads(change, same):
+    """The key of the step's CUDA graph: the fields ``_step`` reads, not the seed or the
+    depth limits (they reach it as inputs); the engine's class; each input's shape."""
+    import dataclasses
+
+    from vo_tpu_torch.engine.vo import _graph_key
+
+    def key(engine, k=512):
+        state = engine.initial_state(torch.zeros(k, 2), torch.zeros(k, 256), torch.ones(
+            k, dtype=torch.bool), torch.ones(k, 3))
+        per_frame = (torch.zeros(4, k, 2), torch.zeros(4, k, 256),
+                     torch.ones(4, k, dtype=torch.bool), torch.ones(4, k, 3),
+                     torch.ones(4, k, dtype=torch.bool), torch.arange(4, dtype=torch.int32),
+                     torch.zeros(4, 2, dtype=torch.int32))
+        return _graph_key(engine, torch.eye(3), state, per_frame)
+
+    class Sub(VOEngine):
+        pass
+
+    base = key(VOEngine(CFG, device="cpu"))
+    assert (key(VOEngine(dataclasses.replace(CFG, **change), device="cpu")) == base) == same
+    assert key(Sub(CFG, device="cpu")) != base
+    assert key(VOEngine(CFG, device="cpu"), k=256) != base
+    assert hash(base) == hash(key(VOEngine(CFG, device="cpu")))
+
+
+@pytest.mark.parametrize("stats, want", [
+    ({"graph_replays": 150, "eager_steps": 0}, 100.0),
+    ({"graph_replays": 45, "eager_steps": 15}, 75.0),
+    ({"graph_replays": 0, "eager_steps": 7}, 0.0),
+    ({"graph_replays": 0, "eager_steps": 0}, None),
+    ({"engine_s": 2.5, "chunks": 10}, None),          # a program without the counters
+    ({"graph_replays": 3}, None),
+])
+def test_engine_graph_step_pct_reader(stats, want):
+    """The benchmark's reader of ``engine_graph_step_pct`` on the entry's stats."""
+    import importlib.util
+    import os
+    from types import SimpleNamespace
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "benchmark", "metrics", "engine_graph_step_pct.py")
+    spec = importlib.util.spec_from_file_location("engine_graph_step_pct", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.read(SimpleNamespace(stats=stats, frames=160)) == want
+
+
 def test_recorder_changes_no_output_and_records_nothing_when_off(frames, traced):
     (poses, diag, (feats, kp3d, rows)), _, _ = traced
     stats: dict = {}
@@ -158,7 +220,7 @@ def test_recorder_changes_no_output_and_records_nothing_when_off(frames, traced)
         assert torch.equal(a, b)
     np.testing.assert_array_equal(rows, rows0)
     assert set(stats) == {"queue_wait_s", "sync_wait_s", "engine_s", "h2d_bytes",
-                          "d2h_bytes", "chunks"}
+                          "d2h_bytes", "chunks", "graph_replays", "eager_steps"}
 
 
 def test_off_costs_one_shared_null_context():
@@ -274,8 +336,11 @@ def test_online_frame_spans(frames):
         ("online.frame", {"frame": 0}), ("online.frame", {"frame": 1})]
     assert _names(spans, [j for j, s in enumerate(spans) if s.parent == roots[0]]) == [
         "online.extract"]
-    assert _names(spans, [j for j, s in enumerate(spans) if s.parent == roots[1]]) == [
-        "online.extract", "engine.match", "pnp.ransac", "online.readback"]
+    kids = [j for j, s in enumerate(spans) if s.parent == roots[1]]
+    assert _names(spans, kids) == ["online.extract", "engine.step", "online.readback"]
+    assert spans[kids[1]].attrs == {"frame": 1}
+    assert _names(spans, [j for j, s in enumerate(spans) if s.parent == kids[1]]) == [
+        "engine.match", "pnp.ransac"]
 
 
 def _events(path):

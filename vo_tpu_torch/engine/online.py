@@ -1,8 +1,9 @@
 """Online VO: the per-frame ``process_frame`` API, for frames that arrive one at a time.
 
-Port of ``vo_tpu/engine/online.py``. The same step as the offline engine
-(``VOEngine._step``), with the keyframe state on the device between calls; per frame
-one extraction and one step, and the pose read back.
+Port of ``vo_tpu/engine/online.py``. The same step as the offline engine (its step
+entry ``VOEngine.steps``: a CUDA-graph replay on the card), with the keyframe state on
+the device between calls; per frame one extraction and one step, and the pose read
+back.
 
     vo = OnlineVO(K)
     for i, (img, depth) in enumerate(stream):
@@ -45,8 +46,8 @@ class OnlineVO:
     def process_frame(self, img, depth, frame_no: int) -> np.ndarray:
         """-> the (4, 4) camera-to-world pose estimate of this frame (np).
 
-        Spans: ``online.frame`` > ``online.extract``, the engine's step
-        (``engine.match``, ``pnp.ransac``), ``online.readback``."""
+        Spans: ``online.frame`` > ``online.extract``, the engine's ``engine.step``
+        (``engine.match``, ``pnp.ransac`` when it runs eagerly), ``online.readback``."""
         with span("online.frame", frame=frame_no):
             with span("online.extract", device=True):
                 kp, desc, valid, kp3d = self._extract(img, depth)
@@ -65,12 +66,12 @@ class OnlineVO:
                 return np.eye(4)
 
             key = prng.fold_in(self._key, frame_id)
-            self.state, pose, diag = self.engine._step(self.K, self.state, kp, desc,
-                                                       valid, kp3d, kp3d_valid, frame_id,
-                                                       key)
+            self.state, pose, diag = self.engine.steps(
+                self.K, self.state, kp[None], desc[None], valid[None], kp3d[None],
+                kp3d_valid[None], frame_id[None], key[None], frames=[frame_no])
             with span("online.readback"):
-                self.last_diagnostics = VOStepDiagnostics(*(d.cpu().numpy() for d in diag))
-                return pose.cpu().numpy()
+                self.last_diagnostics = VOStepDiagnostics(*(d[0].cpu().numpy() for d in diag))
+                return pose[0].cpu().numpy()
 
     def reset(self):
         self.state = None

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from vo_tpu_torch.device import resolve_device, to_device
-from vo_tpu_torch.engine.vo import VOConfig, VOEngine, VOStepDiagnostics
+from vo_tpu_torch.engine.vo import VOConfig, VOEngine, VOStepDiagnostics, step_counts
 from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
 from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
 from vo_tpu_torch.features.stereo import stereo_depth_at
@@ -304,7 +304,9 @@ def run_offline_vo_streaming(
     retained feature row. ``stats``, when given, receives the consumer's seconds
     waiting on the producer (``queue_wait_s``), waiting on the device's readbacks
     (``sync_wait_s``) and issuing the engine's steps (``engine_s``; the engine has no
-    host sync, so this is its host time), ``h2d_bytes``, ``d2h_bytes`` and ``chunks``.
+    host sync, so this is its host time), ``h2d_bytes``, ``d2h_bytes``, ``chunks``, and
+    the engine's steps replayed from its CUDA graph (``graph_replays``) and run eagerly
+    (``eager_steps``: every step off CUDA, the step before a capture on it).
     """
     if retain not in ("all", "sparse"):
         raise ValueError(f"retain must be 'all' or 'sparse', got {retain!r}")
@@ -316,6 +318,7 @@ def run_offline_vo_streaming(
         extractor = OrbLikeExtractor()
     Kd = to_device(np.asarray(K, np.float32), dev)
     engine = VOEngine(vo_config, device=dev)
+    steps0 = dict(step_counts)
 
     q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
     stop = threading.Event()
@@ -520,7 +523,9 @@ def run_offline_vo_streaming(
         save_vo_checkpoint(checkpoint_path, next_frame, np.concatenate(poses_list), state)
     if stats is not None:
         stats.update(queue_wait_s=queue_wait, sync_wait_s=sync_wait, engine_s=engine_s,
-                     h2d_bytes=up.bytes + h2d_sparse, d2h_bytes=d2h_bytes, chunks=n_chunks)
+                     h2d_bytes=up.bytes + h2d_sparse, d2h_bytes=d2h_bytes, chunks=n_chunks,
+                     **{k: step_counts[k] - steps0[k] for k in ("graph_replays",
+                                                                "eager_steps")})
 
     feats = Features(*(torch.cat([c[0][i] for c in feat_chunks]) for i in range(4)))
     kp3d = torch.cat([c[1] for c in feat_chunks])

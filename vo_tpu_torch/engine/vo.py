@@ -13,11 +13,22 @@ the JAX step is kept:
   |t| > kf_max_step, and the lost-tracking refresh after bad_pnp_limit rejections.
 
 The keyframe swap (a ``lax.cond`` there) is a ``torch.where`` per state field.
+
+On a CUDA device the step is launch-bound: ~10,900 small kernels, each issued by the
+host. So ``VOEngine.steps`` replays it as one CUDA graph per input signature (the
+engine's class, the config's fields that the step reads, the device, and the shape and
+dtype of every input), captured once per process and kept at module level: every engine
+with that signature replays the same graph. Elsewhere it calls ``_step``. Both run the
+same kernels in the same order, so their results are equal bit for bit. The graphs
+share one memory pool and their static buffers, so their replays are serialised: a
+replay on another stream than the last one waits for that stream first. Calls from
+several threads at once are not supported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import torch
@@ -27,6 +38,7 @@ from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.estimation.pnp import PnPConfig, pnp_ransac
 from vo_tpu_torch.geometry.se3 import orthonormalize_pose, pose_inverse
 from vo_tpu_torch.matching.matchers import mutual_nn_match, ratio_match, ratio_mutual_nn_match
+from vo_tpu_torch.ops import match as match_ops
 from vo_tpu_torch.ops.match import ratio_match_fused, ratio_mutual_nn_match_fused
 from vo_tpu_torch.utils.profiling import span
 
@@ -71,6 +83,99 @@ class VOStepDiagnostics(NamedTuple):
     accepted: torch.Tensor
     promoted_keyframe: torch.Tensor
     step_norm: torch.Tensor
+
+
+# Counters of the process, beside ``ops.match.launch_wgmma.launches``: CUDA graphs of
+# the step captured, steps replayed from one, steps run eagerly through ``_step`` (every
+# step off CUDA; on CUDA the step before each capture), and the captures' host seconds.
+step_counts = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0,
+               "capture_s": 0.0}
+
+# The captured steps by input signature, for the life of the process: the streaming
+# entry makes a new engine per call, and every engine with a signature shares its graph.
+_graphs: dict = {}
+
+# Per device: the stream the captures run on and the memory pool the graphs share (one
+# graph's temporaries reuse another's, as no two replays overlap); the stream of the
+# last replay, which the next replay on another stream waits for.
+_capture_home: dict = {}
+_last_replay: dict = {}
+
+
+def _signature(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), t.dtype
+
+
+def _graph_key(engine: "VOEngine", K, state: VOState, per_frame) -> tuple:
+    """What a captured step depends on: the engine's class; the config without the
+    fields ``_step`` does not read (the seed makes the keys and the depth limits make
+    ``kp3d_valid``, both inputs); the device; each input's shape and dtype."""
+    cfg = replace(engine.config, seed=0, min_point_depth=0.0, max_point_depth=0.0)
+    return (type(engine), cfg, K.device, _signature(K), *map(_signature, state),
+            *(_signature(x[0]) for x in per_frame))
+
+
+class _StepGraph:
+    """One captured ``_step``: static buffers for K, the carry and one frame's inputs;
+    the graph, which reads them and writes the new carry back into the carry's buffers;
+    and its pose and diagnostics, in the graphs' memory pool."""
+
+    @classmethod
+    def capture(cls, engine: "VOEngine", K, state: VOState, inputs, frame):
+        """-> (the graph, the (state, pose, diag) of ``inputs``' frame).
+
+        The frame's step first runs eagerly on the device's capture stream, so that the
+        match kernels' scratch and cuBLAS's workspace for that stream exist before the
+        capture; its results are the frame's. The graph then takes the scratch out of
+        the match wrappers' cache, so that no later call on that stream (torch hands
+        streams out from a pool), and no later capture, can regrow or share it. The
+        capture is thread-local: a loader thread may upload meanwhile."""
+        dev = K.device
+        cur = torch.cuda.current_stream(dev)
+        if dev not in _capture_home:
+            _capture_home[dev] = (torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
+        stream, pool = _capture_home[dev]
+        g = cls()
+        g.K = torch.empty(K.shape, dtype=K.dtype, device=dev)
+        g.state = VOState(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in state))
+        g.inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in inputs]
+        stream.wait_stream(cur)
+        match_ops.take_scratch(dev, stream.cuda_stream)
+        with torch.cuda.stream(stream):
+            with span("engine.step", frame=frame):
+                first = engine._step(K, state, *inputs)
+        step_counts["eager_steps"] += 1
+        g.graph = torch.cuda.CUDAGraph()
+        match_ops.take_captured()
+        t0 = time.perf_counter()
+        with span("engine.capture", frame=frame):
+            with torch.cuda.graph(g.graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                new_state, g.pose, g.diag = engine._step(g.K, g.state, *g.inputs)
+                for dst, src in zip(g.state, new_state):
+                    dst.copy_(src)
+        step_counts["capture_s"] += time.perf_counter() - t0
+        step_counts["graph_captures"] += 1
+        g.launches = match_ops.take_captured()
+        g.scratch = match_ops.take_scratch(dev, stream.cuda_stream)
+        cur.wait_stream(stream)
+        for t in (*first[0], first[1], *first[2]):
+            t.record_stream(cur)
+        return g, first
+
+    def load(self, K, state: VOState) -> None:
+        """Copy K and the carry into the graph's buffers."""
+        self.K.copy_(K)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    def replay(self, inputs) -> None:
+        """One step from the carry in the buffers, on this frame's inputs."""
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        step_counts["graph_replays"] += 1
+        match_ops.count_replay(self.launches)
 
 
 class VOEngine:
@@ -164,8 +269,68 @@ class VOEngine:
                        ref_3d_valid=self._depth_valid(valid0, kp3d0), ref_pose=pose0,
                        ref_id=zero, bad_pnp=zero.clone(), cur_pose=pose0)
 
+    def steps(self, K, state: VOState, kp, desc, valid, kp3d, kp3d_valid, frame_ids, keys,
+              frames=None):
+        """The step entry: step over C frames from ``state`` -> (state, poses (C, 4, 4),
+        diagnostics of (C,) tensors).
+
+        The frames' inputs are (C, ...): ``frame_ids`` (C,) int32, ``keys`` (C, 2) their
+        threefry keys; ``frames``, when given, the host's frame numbers (the ``frame``
+        of each ``engine.step`` span). On a CUDA device each step replays the step's
+        CUDA graph on the current stream (its span has ``graph=True``), after the work
+        queued on the stream of the last replay: the carry is copied in once, each
+        frame's inputs before its replay, and the poses, diagnostics and final state
+        are copied out, never aliases of the graph's memory. Elsewhere each step calls
+        ``_step``.
+        """
+        per_frame = (kp, desc, valid, kp3d, kp3d_valid, frame_ids, keys)
+        n = kp.shape[0]
+        frame = (lambda i: None) if frames is None else frames.__getitem__
+        if kp.device.type != "cuda":
+            poses, diags = [], []
+            for i in range(n):
+                with span("engine.step", frame=frame(i)):
+                    state, pose, diag = self._step(K, state, *(x[i] for x in per_frame))
+                step_counts["eager_steps"] += 1
+                poses.append(pose)
+                diags.append(diag)
+            diag = VOStepDiagnostics(*(torch.stack(x) for x in zip(*diags)))
+            return state, torch.stack(poses), diag
+
+        sig = _graph_key(self, K, state, per_frame)
+        g = _graphs.get(sig)
+        first = None
+        if g is None:
+            g, first = _StepGraph.capture(self, K, state, [x[0] for x in per_frame],
+                                          frame(0))
+            _graphs[sig] = g
+        dev = kp.device
+        poses = torch.empty((n,) + g.pose.shape, dtype=g.pose.dtype, device=dev)
+        diag = VOStepDiagnostics(*(torch.empty((n,) + d.shape, dtype=d.dtype, device=dev)
+                                   for d in g.diag))
+        outs = (poses, *diag)
+        start = 0
+        if first is not None:
+            state, start = first[0], 1
+            for out, x in zip(outs, (first[1], *first[2])):
+                out[0].copy_(x)
+        if start < n:
+            cur = torch.cuda.current_stream(dev)
+            last = _last_replay.get(dev)
+            if last is not None and last != cur:
+                cur.wait_stream(last)
+            _last_replay[dev] = cur
+            g.load(K, state)
+            for i in range(start, n):
+                with span("engine.step", frame=frame(i), graph=True):
+                    g.replay([x[i] for x in per_frame])
+                    for out, x in zip(outs, (g.pose, *g.diag)):
+                        out[i].copy_(x)
+            state = VOState(*(t.clone() for t in g.state))
+        return state, poses, diag
+
     def run_chunk(self, state: VOState, kp, desc, valid, kp3d, frame_ids, K):
-        """Step over a chunk of frames with an explicit carry.
+        """Step over a chunk of frames with an explicit carry (through ``steps``).
 
         ``frame_ids``: (C,) ints, or a ``range`` (made on the device, and the host
         knows each step's frame: the ``frame`` of its ``engine.step`` span).
@@ -180,16 +345,8 @@ class VOEngine:
             frames = None
             frame_ids = torch.as_tensor(frame_ids, device=kp.device).to(torch.int32)
         keys = prng.fold_in(prng.key(self.config.seed, device=kp.device), frame_ids)
-        poses, diags = [], []
-        for i in range(kp.shape[0]):
-            with span("engine.step", frame=None if frames is None else frames[i]):
-                state, pose, diag = self._step(K, state, kp[i], desc[i], valid[i],
-                                               kp3d[i], kp3d_valid[i], frame_ids[i],
-                                               keys[i])
-            poses.append(pose)
-            diags.append(diag)
-        diag = VOStepDiagnostics(*(torch.stack(x) for x in zip(*diags)))
-        return state, torch.stack(poses), diag
+        return self.steps(K, state, kp, desc, valid, kp3d, kp3d_valid, frame_ids, keys,
+                          frames)
 
     def run_sequence(self, kp, desc, valid, kp3d, K, init_pose=None):
         """Run VO over a pre-extracted sequence -> ((F, 4, 4) poses, diagnostics).

@@ -39,7 +39,9 @@ def _top2(sim: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     rows = torch.arange(sim.shape[0], device=sim.device)
     best_sim = sim[rows, best]
     sim_wo_best = sim.clone()
-    sim_wo_best[rows, best] = _NEG
+    # The fill value as a device tensor: a Python scalar would be copied up from the host,
+    # which waits on the stream and cannot be captured in a CUDA graph.
+    sim_wo_best[rows, best] = torch.full((), _NEG, dtype=sim.dtype, device=sim.device)
     second_sim = torch.amax(sim_wo_best, dim=1)
     return best, torch.stack([best_sim, second_sim], dim=1)
 

@@ -11,7 +11,9 @@ matchers need, without materialising the (Na, Nb) similarity matrix:
   fallback from the card to the plain version or from one kernel to the other.
 
 ``launch_wgmma.launches`` and ``launch_simt.launches`` count kernel launches, so a run
-can show that its matches went through a kernel.
+can show that its matches went through a kernel. A launch recorded into a CUDA graph
+runs nothing at the capture: it goes to the capture's tally (``take_captured``) instead,
+and each replay of the graph counts the tally it captured (``count_replay``).
 """
 
 from __future__ import annotations
@@ -205,13 +207,26 @@ def _sms(dev) -> int:
 
 # The kernels' scratch, per (device, stream): partial rows, column keys and tickets.
 # Each kernel leaves the keys and tickets as it found them, so they are filled only
-# when the scratch is made or grown, and both kernels share it.
+# when the scratch is made or grown, and both kernels share it. A CUDA graph that
+# captured launches keeps their scratch (``take_scratch``), which then never changes.
 _scratch: dict = {}
+
+
+def take_scratch(dev, stream: int) -> dict | None:
+    """Take the scratch of ``stream`` (a ``cuda_stream`` handle) out of the cache: a
+    graph captured on that stream keeps it, so that no later call on the stream (torch
+    hands streams out from a pool) can regrow or share it."""
+    return _scratch.pop((dev.index, stream), None)
 
 
 def _match_scratch(dev, stream, n_part, nb, n_tickets):
     key = (dev.index, stream)
     s = _scratch.get(key)
+    if torch.cuda.is_current_stream_capturing() and (
+            s is None or s["best"].numel() < n_part or s["colkey"].numel() < nb
+            or s["tickets"].numel() < n_tickets):
+        raise RuntimeError("a CUDA graph capture would make the match scratch: run the "
+                           "call once on the capture stream before capturing it")
     if s is None or s["best"].numel() < n_part:
         n = max(n_part, 0 if s is None else s["best"].numel())
         s = dict(s or {}, best=torch.empty(n, dtype=torch.float32, device=dev),
@@ -256,12 +271,39 @@ def _launch(name, entry, a, b, va, vb, bf16):
     return nn12, top2, nn21
 
 
+# The launches recorded by CUDA graph captures since the last ``take_captured``.
+_captured = {"wgmma": 0, "simt": 0}
+
+
+def _count(kernel: str, fn) -> None:
+    """One launch of ``kernel``: on ``fn.launches``, or on the capture's tally when the
+    current stream is capturing a CUDA graph."""
+    if torch.cuda.is_current_stream_capturing():
+        _captured[kernel] += 1
+    else:
+        fn.launches += 1
+
+
+def take_captured() -> dict:
+    """-> the launches captured since the last call, {"wgmma": n, "simt": n}, and start
+    a new tally: call it before a capture and after it, to get what the graph holds."""
+    out = dict(_captured)
+    _captured.update(wgmma=0, simt=0)
+    return out
+
+
+def count_replay(tally: dict) -> None:
+    """Count one replay of a graph that captured ``tally`` (``take_captured``)."""
+    launch_wgmma.launches += tally["wgmma"]
+    launch_simt.launches += tally["simt"]
+
+
 def launch_simt(a, b, va, vb):
     """The CUDA-core kernel on fp32 (Na, D) x (Nb, D): one launch."""
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"the SIMT kernel takes fp32 operands, got {a.dtype}, {b.dtype}")
     out = _launch("SIMT", _library().vo_top2_mutual_simt, a, b, va, vb, False)
-    launch_simt.launches += 1
+    _count("simt", launch_simt)
     return out
 
 
@@ -273,7 +315,7 @@ def launch_wgmma(a, b, va, vb):
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"the wgmma kernel takes bf16 operands, got {a.dtype}, {b.dtype}")
     out = _launch("wgmma", _library().vo_top2_mutual_wgmma, a, b, va, vb, True)
-    launch_wgmma.launches += 1
+    _count("wgmma", launch_wgmma)
     return out
 
 
