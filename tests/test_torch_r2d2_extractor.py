@@ -29,9 +29,11 @@ from PIL import Image
 
 from vo_tpu.models import multiscale as jms
 from vo_tpu.models import patchnet as jpatchnet
+from vo_tpu.models import port_weights as jport_weights
 from vo_tpu.models.r2d2_extractor import R2D2Extractor as JR2D2Extractor
 from vo_tpu.runners import extract as jextract
-from vo_tpu_torch.models import multiscale, patchnet
+from vo_tpu_torch.io.dataset import _read_png_rgb
+from vo_tpu_torch.models import multiscale, patchnet, port_weights
 from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
 from vo_tpu_torch.port_state import patchnet_params_from_jax
 from vo_tpu_torch.runners import extract
@@ -193,15 +195,27 @@ def test_extract_multiscale_matches_jax(nets, shape, tmp_path):
         assert (np.diff(t["scores"]) >= 0).all()
 
 
-def test_extract_cli_matches_jax(tmp_path, monkeypatch):
-    """Both CLIs on the same PNGs (two sizes, one listed in a .txt), each package's
-    ``load_pretrained`` routed to the same seeded network; the port also writes the
-    kapture tree."""
-    params = seeded_params(SPEC[0], 9, heads=False)
+@pytest.mark.parametrize("model, arch", [
+    ("faster2d2_WASF_N16", "Fast_Quad_L2Net_ConfCFS()"),
+    ("r2d2_WASF_N16", "Quad_L2Net_ConfCFS()"),
+])
+def test_extract_cli_matches_jax(tmp_path, monkeypatch, model, arch):
+    """Both CLIs on the same PNGs (two sizes, one listed in a .txt), each reading the
+    same seeded checkpoint of the published network ``arch`` in the published layout
+    (the port's from ``port_weights.MODELS_DIR``); the port's features are also
+    ``extract_multiscale``'s, and it writes the kapture tree."""
+    spec = jport_weights.ARCH_TO_SPEC[arch]
+    tspec = port_weights.ARCH_TO_SPEC[arch]
+    tparams = patchnet_params_from_jax(seeded_params(spec, 9, heads=False), device="cpu")
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    state = patchnet.PatchNet(tspec, tparams).state_dict()
+    torch.save({"net": arch, "state_dict": {f"module.{k}": v for k, v in state.items()}},
+               weights / f"{model}.pt")
+    monkeypatch.setattr(port_weights, "MODELS_DIR", str(weights))
     monkeypatch.setattr("vo_tpu.models.port_weights.load_pretrained",
-                        lambda name: (SPEC[0], jax.tree_util.tree_map(jnp.asarray, params)))
-    monkeypatch.setattr("vo_tpu_torch.models.port_weights.load_pretrained",
-                        lambda name: (SPEC[1], patchnet_params_from_jax(params, device="cpu")))
+                        lambda name: jport_weights.load_torch_checkpoint(
+                            str(weights / f"{name}.pt")))
     rng = np.random.default_rng(13)
     paths = []
     for i, hw in enumerate([(64, 80), (64, 80), (57, 71)]):
@@ -214,15 +228,26 @@ def test_extract_cli_matches_jax(tmp_path, monkeypatch):
     assert extract.expand_image_list([paths[0], str(lst)]) == paths
     flags = ["--images", paths[0], str(lst), "--min-size", "32", "--top-k", "64",
              "--reliability-thr", "0", "--repeatability-thr", "0", "--batch", "2"]
+    flags += ["--model", model]
     assert jextract.main(flags + ["--tag", "jax"]) == 0
     kroot = str(tmp_path / "kapture")
     assert extract.main(flags + ["--tag", "port", "--device", "cpu", "--kapture-root",
                                  kroot, "--kapture-image-root", str(tmp_path)]) == 0
+    cfg = multiscale.MultiscaleConfig(min_size=32, top_k=64, rel_thr=0.0, rep_thr=0.0)
+    for group in ([0, 1], [2]):     # the CLI's batches: one size, --batch 2
+        imgs = np.stack([_read_png_rgb(paths[i]) for i in group])
+        feats = multiscale.extract_multiscale(tparams, tspec, imgs, cfg, device="cpu")
+        for b, i in enumerate(group):
+            multiscale.save_r2d2_npz(paths[i] + ".direct", feats,
+                                     (imgs.shape[2], imgs.shape[1]), frame=b)
     for p in paths:
         with np.load(p + ".jax") as j, np.load(p + ".port") as t:
             np.testing.assert_array_equal(t["imsize"], j["imsize"])
             _assert_same_keypoints(*([f["keypoints"], f["descriptors"], f["scores"]]
                                      for f in (j, t)))
+            with np.load(p + ".direct") as d:
+                for k in ("imsize", "keypoints", "descriptors", "scores"):
+                    np.testing.assert_array_equal(t[k], d[k], err_msg=k)
             rel = os.path.relpath(p, tmp_path)
             kp, desc = extract.load_kapture_features(kroot, "port", rel)
             np.testing.assert_array_equal(kp, t["keypoints"][np.argsort(-t["scores"],

@@ -17,11 +17,16 @@ checkpoints' module layout (``ops.{i}`` = conv -> [bn] -> [relu] -> [pool], ``cl
 ``sal``), so a checkpoint's state dict loads into it as it is.
 
 The convolutions are cuDNN's on the card (``F.conv2d``): the JAX package leaves them
-to XLA (``lax.conv_general_dilated``), outside any Pallas kernel.
+to XLA (``lax.conv_general_dilated``), outside any Pallas kernel. While the span
+recorder (``utils/profiling.py``) is on, each runs inside an ``r2d2.conv`` device span
+that names its layer, kernel size, dilation, channels and the rows and size it runs
+at, from which its operations and bytes follow; while it is off, the site costs one
+flag test.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -32,8 +37,10 @@ from torch import nn
 from vo_tpu_torch import prng
 from vo_tpu_torch.ops.image import resize_bilinear
 from vo_tpu_torch.parallel import comm
+from vo_tpu_torch.utils import profiling
 
 BN_EPS = 1e-5
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclass(frozen=True)
@@ -247,8 +254,12 @@ def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor, train: bool
     acc = torch.float64 if dt == torch.float64 else torch.float32
     bn_stats = []
     x = images.to(dt).permute(0, 3, 1, 2)          # NCHW view of NHWC memory
-    for cs, layer in zip(spec.convs, params["convs"]):
-        x = F.conv2d(x, layer["w"].to(dt), padding=cs.pad, dilation=cs.dilation)
+    for i, (cs, layer) in enumerate(zip(spec.convs, params["convs"])):
+        with (profiling.span("r2d2.conv", device=True, layer=i, k=cs.k,
+                             dilation=cs.dilation, cin=cs.in_ch, cout=cs.out_ch,
+                             rows=x.shape[0], h=x.shape[2], w=x.shape[3])
+              if profiling.recording() else _NO_SPAN):
+            x = F.conv2d(x, layer["w"].to(dt), padding=cs.pad, dilation=cs.dilation)
         x = x + layer["b"].to(dt)[:, None, None]
         if cs.bn:
             xf = x.to(acc)

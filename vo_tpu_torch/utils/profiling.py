@@ -178,6 +178,12 @@ def span(name: str, device: bool = False, **attrs):
     return _Span(name, attrs, device=device)
 
 
+def recording() -> bool:
+    """Whether the recorder is on: a site whose span attributes cost work to gather
+    tests this before it builds them."""
+    return _on
+
+
 def timed(name: str, **attrs) -> _Span:
     """A span whose clock is read whether or not the recorder is on, for a caller that
     also sums the interval itself (``.seconds``): both come from the same two reads."""
