@@ -5,19 +5,23 @@
 Phases, each of which raises (non-zero exit, no result line) on any failure:
 
 1. device: CUDA must be available; prints the card's name and power limit;
-2. build: compiles both match kernels from ``vo_tpu_torch/ops/csrc`` (nvcc) and prints
-   ptxas's registers and spills for each: the wgmma kernel (bf16 operands,
-   ``match_wgmma.cu``) and the SIMT kernel (fp32 operands, ``match_kernel.cu``);
-3. kernels vs plain: each kernel against ``top2_mutual_plain`` on the card: workload
-   descriptors, tie-heavy cases, ragged and tiny shapes, widths that need padding,
-   Nb > 16384, SIFT-like descriptors, a misaligned view, all-invalid columns, and
-   calls in a row that grow and shrink the cached scratch;
+2. build: compiles the kernels of ``vo_tpu_torch/ops/csrc`` (nvcc) and prints ptxas's
+   registers and spills for each: the wgmma kernel (bf16 operands, ``match_wgmma.cu``),
+   the SIMT kernel (fp32 operands, ``match_kernel.cu``) and PnP's Gauss-Newton kernel
+   (``pnp_gn.cu``);
+3. kernels vs plain: each match kernel against ``top2_mutual_plain`` on the card:
+   workload descriptors, tie-heavy cases, ragged and tiny shapes, widths that need
+   padding, Nb > 16384, SIFT-like descriptors, a misaligned view, all-invalid columns,
+   and calls in a row that grow and shrink the cached scratch; the Gauss-Newton kernel
+   against ``_gn_refine_plain`` at N = 2048 and 2049 with PnP's two schedules (mixed
+   masks and points behind the camera, a far start pose, no valid point);
 4. main path: the port's ``run_offline_vo`` on the 160-frame 376 x 1232 synthetic
    RGB-D slalom (2048 keypoints, 512 hypotheses), which captures the engine step's CUDA
    graph (its seconds printed and kept as a phase of their own); asserts the trajectory
-   gate, one wgmma launch per tracked frame (a replay counts the launch it captured),
-   one ``top2_wgmma_kernel`` in the device trace per replayed step of a 16-step chunk,
-   and identical poses from the plain matcher (first 32 frames);
+   gate, one wgmma launch and two Gauss-Newton launches per tracked frame (a replay
+   counts the launches it captured), one ``top2_wgmma_kernel`` and two
+   ``pnp_gn_kernel`` in the device trace per replayed step of a 16-step chunk, and
+   identical poses from the plain matcher (first 32 frames);
 5. float-mode path: the engine with the ``ratio_mutual_nn`` matcher on the first 16
    frames' descriptors as fp32 unit vectors (+-1/16); asserts one SIMT launch per
    tracked frame, one ``top2_simt_kernel`` in the device trace per replayed step, and
@@ -30,8 +34,8 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
 7. timing: extraction and the engine over the first 16 frames, and the kernels
    (wgmma at 2048 x 2048 x 256 bf16;
    SIMT at 2048 x 2048 x 128 on the SIFT frames' descriptors and at 2048 x 2048 x 256
-   on the main path's as fp32) against their plain versions, a library yardstick and
-   the bound; one CUDA kernel per SIMT call under the profiler; then a profile of
+   on the main path's as fp32; Gauss-Newton at N = 2048, 10 iterations) against their
+   plain versions, a library yardstick (the match kernels) and the bound; one CUDA kernel per SIMT call under the profiler; then a profile of
    extraction and the engine;
 8. streaming, CLI and online: the frames written to disk in the JAX bench's
    io-included format (gray PNG + ``<u2`` millimetre npy, ``bench.py:81-102``); the
@@ -336,23 +340,24 @@ def _device_ops(fn) -> dict:
 def _traced_replays(name, engine, args, kernel) -> dict:
     """``engine.run_sequence(*args)`` on a signature already captured, under the
     profiler: every step must replay the step's graph, and the device trace must show
-    one execution of the match ``kernel`` per replay and none of the other.
-    -> {"replays": n, kernel: executions}."""
+    one execution of the match ``kernel`` per replay and none of the other, and two of
+    PnP's Gauss-Newton kernel. -> {"replays": n, kernel: executions, GN_KERNEL: ...}."""
     from vo_tpu_torch.engine.vo import step_counts
 
     before = dict(step_counts)
     ops = _device_ops(lambda: engine.run_sequence(*args))
     steps = {k: step_counts[k] - before[k] for k in ("graph_captures", "graph_replays",
                                                       "eager_steps")}
-    runs = {k: sum(c for op, (c, _) in ops.items() if k in op) for k in KERNELS}
+    runs = {k: sum(c for op, (c, _) in ops.items() if k in op) for k in (*KERNELS, GN_KERNEL)}
     n = args[0].shape[0] - 1
-    print(f"{name}, {n} steps under the profiler: {steps}; match kernels in the device "
+    print(f"{name}, {n} steps under the profiler: {steps}; kernels in the device "
           f"trace {runs}")
     want = {k: n if k == kernel else 0 for k in KERNELS}
+    want[GN_KERNEL] = 2 * n
     if steps != {"graph_captures": 0, "graph_replays": n, "eager_steps": 0} or runs != want:
         raise AssertionError(f"{name}: {steps}, trace {runs}; expected {n} replays and "
                              f"{want}")
-    return {"replays": n, kernel: runs[kernel]}
+    return {"replays": n, kernel: runs[kernel], GN_KERNEL: runs[GN_KERNEL]}
 
 
 def _device_profile(fn):
@@ -380,11 +385,13 @@ def _counts() -> dict:
 
 def _reset_counts() -> None:
     from vo_tpu_torch.ops import match
+    from vo_tpu_torch.ops.pnp_gn import launch_gn
 
-    match.launch_wgmma.launches = match.launch_simt.launches = 0
+    match.launch_wgmma.launches = match.launch_simt.launches = launch_gn.launches = 0
 
 
 KERNELS = ("top2_wgmma_kernel", "top2_simt_kernel")
+GN_KERNEL = "pnp_gn_kernel"
 
 
 def _ptxas_lines(out: str) -> list[str]:
@@ -392,7 +399,7 @@ def _ptxas_lines(out: str) -> list[str]:
     lines, kernel = [], "?"
     for line in out.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in KERNELS if k in line), line.strip())
+            kernel = next((k for k in (*KERNELS, GN_KERNEL) if k in line), line.strip())
         elif "registers" in line or "spill" in line:
             lines.append(f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
     return lines
@@ -558,6 +565,128 @@ def _kernel_entry(card, kernel, source, a, b, va, vb, bf16, peak, peak_name, lau
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": tm["library_ms"],
+    }
+
+
+def _gn_case(rng, n, case):
+    """A PnP solve for the Gauss-Newton kernel: keyframe points X (N, 3), their pixels
+    under a known motion (0.5 px noise, 30 % gross outliers), a valid mask, K and the
+    start pose. ``case``: "mixed" (10 % invalid, 5 % behind the camera, the start near
+    the motion), "far" (the start 0.12 rad and 2.3 m off), "all_invalid"."""
+    X = np.stack([rng.uniform(-20, 20, n), rng.uniform(-3, 3, n), rng.uniform(4, 60, n)], 1)
+    if case == "mixed":
+        X[rng.uniform(size=n) < 0.05, 2] *= -1.0
+    a = 0.04
+    R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
+    Y = X @ R.T + np.array([0.2, -0.05, 0.8])
+    x = (K[:2, :2] @ (Y[:, :2] / np.abs(Y[:, 2:])).T + K[:2, 2:]).T
+    x += rng.normal(0.0, 0.5, (n, 2))
+    out = rng.uniform(size=n) < 0.3
+    x[out] += rng.uniform(-100, 100, (int(out.sum()), 2))
+    valid = (rng.uniform(size=n) > 0.1) & (case != "all_invalid")
+    pose0 = np.eye(4)
+    if case == "mixed":
+        pose0[:3, :3], pose0[:3, 3] = R, [0.23, -0.04, 0.78]
+    elif case == "far":
+        b = 0.12
+        pose0[:3, :3] = [[np.cos(b), -np.sin(b), 0.0], [np.sin(b), np.cos(b), 0.0],
+                         [0.0, 0.0, 1.0]]
+        pose0[:3, 3] = [1.5, -0.8, 1.5]
+    return pose0, X, x, valid
+
+
+def _gn_checks(dev) -> list:
+    """Phase 3: the Gauss-Newton kernel against ``_gn_refine_plain`` on the card, one
+    launch per solve; returns the largest |pose| difference of each case. The pose is
+    held within 1e-5 and the inliers at the final pose must be the same; with no valid
+    point the pose comes back unchanged."""
+    import torch
+
+    from vo_tpu_torch.estimation.pnp import (PnPConfig, _gn_refine, _gn_refine_plain,
+                                             _reproject_residuals)
+    from vo_tpu_torch.ops.pnp_gn import launch_gn
+
+    cfg = PnPConfig()
+    schedules = {"anneal": list(cfg.anneal) + [cfg.reproj_threshold] * 4,
+                 "refine": [cfg.reproj_threshold] * cfg.gn_iterations}
+    Kd = torch.from_numpy(K).to(dev)
+    rng = np.random.default_rng(8214)
+    errs = []
+    for n in (2048, 2049):
+        for case in ("mixed", "far", "all_invalid"):
+            pose0, X, x, valid = (torch.from_numpy(np.asarray(a, np.float32) if a.dtype != bool
+                                                   else a).to(dev)
+                                  for a in _gn_case(rng, n, case))
+            for name, thr in schedules.items():
+                before = launch_gn.launches
+                got = _gn_refine(pose0, X, x, valid, Kd, cfg, thresholds=thr)
+                want = _gn_refine_plain(pose0, X, x, valid, Kd, cfg, thr)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                inl = [(r < cfg.reproj_threshold) & (z > cfg.min_depth) & valid
+                       for r, z in (_reproject_residuals(p, X, x, Kd) for p in (got, want))]
+                ok = (launch_gn.launches == before + 1 and err <= 1e-5
+                      and bool(torch.equal(inl[0], inl[1]))
+                      and (case != "all_invalid" or bool(torch.equal(got, pose0))))
+                print(f"Gauss-Newton kernel vs plain [N = {n}, {case}, {name}]: max|pose "
+                      f"err| {err:g}, inliers {int(inl[0].sum())} / {int(inl[1].sum())} "
+                      f"-> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"Gauss-Newton kernel disagrees with the plain "
+                                         f"version: N = {n}, {case}, {name}")
+                errs.append(err)
+    return errs
+
+
+# Floating-point operations of one point in one Gauss-Newton iteration, as the kernel
+# does them: the transform (18), the projection, residual and weight (13), the Jacobian
+# and its weighted copy (31), and J^T W J, J^T W r and sum w (21 x 4 + 6 x 4 + 1).
+GN_FLOPS_PER_POINT = 171
+
+
+def _gn_entry(card, launched, errs, n_rep=50) -> dict:
+    """The kernels line's entry of the Gauss-Newton kernel at the main path's N = 2048
+    and the polish's 10 iterations: the kernel and the plain version timed over CUDA
+    graph replays (L2 warm) and eagerly, against the bound (each input byte read once
+    and the operations at the fp32 peak)."""
+    import torch
+
+    from vo_tpu_torch.estimation.pnp import PnPConfig, _gn_refine, _gn_refine_plain
+    from vo_tpu_torch.ops.match_timing import eager_ms, graph_ms
+
+    cfg = PnPConfig()
+    n, thr = 2048, [cfg.reproj_threshold] * cfg.gn_iterations
+    dev = torch.device("cuda")
+    pose0, X, x, valid = (torch.from_numpy(np.asarray(a, np.float32) if a.dtype != bool
+                                           else a).to(dev)
+                          for a in _gn_case(np.random.default_rng(8215), n, "mixed"))
+    Kd = torch.from_numpy(K).to(dev)
+    fns = {"ms": lambda: _gn_refine(pose0, X, x, valid, Kd, cfg, thresholds=thr),
+           "plain_ms": lambda: _gn_refine_plain(pose0, X, x, valid, Kd, cfg, thr)}
+    tm = {k: graph_ms(fn, n_rep) for k, fn in fns.items()}
+    eager = {k: eager_ms(fn, n_rep) for k, fn in fns.items()}
+    flops = float(GN_FLOPS_PER_POINT * n * len(thr))
+    nbytes = n * (12 + 8 + 1) + 2 * 64 + 36
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    print(f"pnp_gn kernel [{card}] N = {n}, {len(thr)} iterations: kernel {tm['ms']:.4f} "
+          f"ms ({tm['ms'] / len(thr) * 1e3:.2f} us an iteration), plain "
+          f"{tm['plain_ms']:.4f} ms, bound {bound_ms * 1e3:.3f} us ({flops / 1e6:.2f} MFLOP "
+          f"at 67 TFLOP/s fp32; {nbytes / 1024:.1f} KiB at 3.35 TB/s), "
+          f"{bound_ms / tm['ms'] * 100:.2f} % of the bound (CUDA-graph replays); eager "
+          f"back-to-back: kernel {eager['ms']:.4f} ms, plain {eager['plain_ms']:.4f} ms")
+    return {
+        "name": f"pnp_gn N={n} x {len(thr)} iterations fp32",
+        "route": "cuda",
+        "source": "vo_tpu_torch/ops/csrc/pnp_gn.cu",
+        "replaces": "none (vo_tpu/estimation/pnp.py::_gn_refine, fused by XLA)",
+        "launches": launched,
+        "max_abs_err": max(errs),
+        "ms": tm["ms"],
+        "plain_ms": tm["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
     }
 
 
@@ -2246,6 +2375,7 @@ def _smoke(second, conn, work) -> None:
     from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
     from vo_tpu_torch.io.native import build_loader
     from vo_tpu_torch.ops import match
+    from vo_tpu_torch.ops.pnp_gn import launch_gn
     from vo_tpu_torch.utils.synthetic import slalom_trajectory
 
     # Phase 2: build (the match kernels and the native loader); then the second
@@ -2256,7 +2386,7 @@ def _smoke(second, conn, work) -> None:
     ptxas_lines = _ptxas_lines(ptxas)
     for line in ptxas_lines:
         print(f"  ptxas: {line}")
-    for kernel in KERNELS:
+    for kernel in (*KERNELS, GN_KERNEL):
         if build_s > 0 and not any(x.startswith(kernel) for x in ptxas_lines):
             raise AssertionError(f"ptxas printed nothing for {kernel}")
     second.start()
@@ -2266,6 +2396,7 @@ def _smoke(second, conn, work) -> None:
     # frames are rendered).
     t0 = time.perf_counter()
     errs = _synthetic_checks(dev)
+    gn_errs = _gn_checks(dev)
     phase_s["kernel_checks_synthetic"] = time.perf_counter() - t0
 
     # The slalom (phases 3-8, 10 and 15) and its right eye at bench.py's baseline
@@ -2308,6 +2439,7 @@ def _smoke(second, conn, work) -> None:
         extraction_batch=EXTRACT_BATCH, return_features=True, device="cuda")
     counts = _counts()
     launches = counts["wgmma"]
+    gn_launches = launch_gn.launches
     phase_s["main_path"] = time.perf_counter() - t0
     steps = {k: step_counts[k] - steps0[k] for k in step_counts}
     phase_s["main_path_graph_capture"] = steps["capture_s"]
@@ -2316,6 +2448,10 @@ def _smoke(second, conn, work) -> None:
           f"{steps['eager_steps']} eager")
     if counts != {"wgmma": F - 1, "simt": 0}:
         raise AssertionError(f"main path launches {counts}, expected {F - 1} wgmma, 0 simt")
+    print(f"main path Gauss-Newton kernel launches {gn_launches}")
+    if gn_launches != 2 * (F - 1):
+        raise AssertionError(f"main path Gauss-Newton launches {gn_launches}, expected "
+                             f"{2 * (F - 1)}")
     m = F_TIMED // 2 + 1
     traced = {"main path": _traced_replays(
         "main path", VOEngine(cfg, device=dev),
@@ -2524,6 +2660,11 @@ def _smoke(second, conn, work) -> None:
             traced["float-mode path"]}
     for e in entries:
         e["max_abs_err"] = max(errs["wgmma" if "wgmma" in e["name"] else "simt"])
+    entries.append(_gn_entry(card, gn_launches, gn_errs, n_rep))
+    entries[-1]["launches_by_path"] = {"main path (run_offline_vo, 160 frames)": gn_launches}
+    entries[-1]["traced_replays"] = {
+        f"{path} ({t['replays']} steps)": {"replays": t["replays"], GN_KERNEL: t[GN_KERNEL]}
+        for path, t in traced.items()}
 
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -29,7 +29,9 @@ eager steps bit for bit (wgmma, SIMT and plain matchers), one capture per input
 signature across engines (not per seed; per engine class) in one shared memory pool,
 ``OnlineVO`` and a capture inside a stream replaying, the match counters counting
 replays and not the capture and the device trace showing one match kernel per replayed
-step, and no host sync either way.
+step, and no host sync either way. PnP's Gauss-Newton kernel against its plain version
+(poses, inliers and the sum w >= 4 gate, any N and schedule length), bit-identical in a
+graph, and its launches in the streaming entry's stats.
 """
 
 import time
@@ -922,6 +924,196 @@ def test_capture_inside_a_stream_while_the_loader_uploads(cuda_device, fresh_gra
     assert (s1["eager_steps"], s1["graph_replays"]) == (1, 10)
     assert (s2["eager_steps"], s2["graph_replays"]) == (0, 11)
     np.testing.assert_array_equal(p1, p2)
+
+
+def _gn_problem(n, case, seed=5):
+    """A PnP solve of ``n`` points (K is the cells' KITTI camera): keyframe points X,
+    their pixels under a known motion with 0.5 px noise and 30 % gross outliers, a valid
+    mask and the start pose. ``case``: "mixed" (10 % invalid, 5 % of the points behind
+    the camera), "all_invalid" (no valid point), "far" (the start pose 0.12 rad and
+    2.3 m from the motion)."""
+    rng = np.random.default_rng([seed, n])
+    K = np.array([[721.53, 0.0, 609.55], [0.0, 721.53, 172.85], [0.0, 0.0, 1.0]],
+                 np.float32)
+    X = np.stack([rng.uniform(-20, 20, n), rng.uniform(-3, 3, n), rng.uniform(4, 60, n)], 1)
+    behind = rng.uniform(size=n) < (0.05 if case == "mixed" else 0.0)
+    X[behind, 2] *= -1.0
+    ang = 0.04
+    R = np.array([[np.cos(ang), 0.0, np.sin(ang)], [0.0, 1.0, 0.0],
+                  [-np.sin(ang), 0.0, np.cos(ang)]])
+    Y = X @ R.T + np.array([0.2, -0.05, 0.8])
+    x = K[:2, :2] @ (Y[:, :2] / np.abs(Y[:, 2:])).T + K[:2, 2:]
+    x = x.T + rng.normal(0.0, 0.5, (n, 2))
+    out = rng.uniform(size=n) < 0.3
+    x[out] += rng.uniform(-100, 100, (int(out.sum()), 2))
+    valid = rng.uniform(size=n) > 0.1
+    if case == "all_invalid":
+        valid[:] = False
+    pose0 = np.eye(4)
+    if case == "far":
+        a = 0.12
+        pose0[:3, :3] = [[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                         [0.0, 0.0, 1.0]]
+        pose0[:3, 3] = [1.5, -0.8, 1.5]
+    elif case == "mixed":
+        pose0[:3, :3], pose0[:3, 3] = R, [0.23, -0.04, 0.78]
+    return [torch.tensor(a, dtype=torch.float32) for a in (pose0, X, x)] + [
+        torch.from_numpy(valid), torch.from_numpy(K)]
+
+
+def _gn_schedules():
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+
+    cfg = PnPConfig()
+    return cfg, {"anneal": list(cfg.anneal) + [cfg.reproj_threshold] * 4,
+                 "refine": [cfg.reproj_threshold] * cfg.gn_iterations}
+
+
+def _gn_gate_open(pose, X, x_px, valid, K, cfg, thr) -> bool:
+    """Sigma w >= 4 at ``pose``, w as ``_gn_refine_plain`` weighs its points."""
+    Y = X @ pose[:3, :3].T + pose[:3, 3]
+    z_ok = Y[:, 2] > cfg.min_depth
+    z = torch.where(z_ok, Y[:, 2], torch.ones_like(Y[:, 2]))
+    u = K[0, 0] * Y[:, 0] / z + K[0, 2]
+    v = K[1, 1] * Y[:, 1] / z + K[1, 2]
+    res = torch.sqrt((u - x_px[:, 0]) ** 2 + (v - x_px[:, 1]) ** 2)
+    return int((valid & z_ok & (res < thr)).sum()) >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 2048, 2049, 4096])
+@pytest.mark.parametrize("schedule", ["anneal", "refine"])
+@pytest.mark.parametrize("case", ["mixed", "all_invalid", "far"])
+def test_gn_kernel_matches_the_plain_version(cuda_device, n, schedule, case):
+    """One launch of the Gauss-Newton kernel per solve, against ``_gn_refine_plain`` on
+    the card: the pose within 1e-5 m and 1e-5 rad, the same inliers at the final pose,
+    and the same Sigma w >= 4 decision at every iteration (the kernel's pose stays put
+    exactly where the plain version's gate is shut). No valid point: the pose comes
+    back as it went in.
+
+    Both sum in fp32, in different orders, and the kernel is also held within 1e-5 of
+    the plain version run in fp64. One case fits a handful of points: the far start
+    under the tight schedule at N = 4096 (4 outliers land within 1.5 px). There the
+    plain version does not reproduce itself to 1e-5 when only its summation order
+    changes (the points permuted: 1.5e-5 m on the card; its CPU run lies 1.7e-5 m
+    away), so the bound against it is twice that distance wherever that is the larger.
+    """
+    from vo_tpu_torch.estimation.pnp import _gn_refine, _gn_refine_plain, _reproject_residuals
+    from vo_tpu_torch.ops.pnp_gn import launch_gn
+
+    cfg, schedules = _gn_schedules()
+    thr = schedules[schedule]
+    pose0, X, x_px, valid, K = (t.to(cuda_device) for t in _gn_problem(n, case))
+    before = launch_gn.launches
+    got = _gn_refine(pose0, X, x_px, valid, K, cfg, thresholds=thr)
+    torch.cuda.synchronize()
+    assert launch_gn.launches - before == 1
+    want = _gn_refine_plain(pose0, X, x_px, valid, K, cfg, thr)
+    exact = _gn_refine_plain(*(t.double() for t in (pose0, X, x_px)), valid, K.double(),
+                             cfg, thr)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    reordered = _gn_refine_plain(pose0, X[perm], x_px[perm], valid[perm], K, cfg, thr)
+    g, w, e, o = (p.double().cpu().numpy() for p in (got, want, exact, reordered))
+
+    def gaps(a, b):
+        """(largest translation gap in m, rotation gap in rad)"""
+        return (np.abs(a[:3, 3] - b[:3, 3]).max(),
+                np.linalg.norm(a[:3, :3] - b[:3, :3]) / np.sqrt(2.0))
+
+    bounds = [max(1e-5, 2.0 * x) for x in gaps(w, o)]
+    assert all(x < b for x, b in zip(gaps(g, w), bounds)), (gaps(g, w), gaps(w, o), g, w)
+    assert max(gaps(g, e)) < 1e-5, (gaps(g, e), g, e)
+    np.testing.assert_array_equal(g[3], [0.0, 0.0, 0.0, 1.0])
+    inl = [(r < cfg.reproj_threshold) & (z > cfg.min_depth) & valid
+           for r, z in (_reproject_residuals(p, X, x_px, K) for p in (got, want))]
+    assert torch.equal(inl[0], inl[1])
+    if case == "all_invalid":
+        assert torch.equal(got, pose0)
+    # The gate, iteration by iteration: the kernel on each prefix of the schedule
+    # against the plain version stepped alone; where the gate is shut the kernel's
+    # pose stays exactly as it was.
+    p_gpu, p_plain = pose0, pose0
+    for k in range(len(thr)):
+        gate = _gn_gate_open(p_plain, X, x_px, valid, K, cfg, thr[k])
+        assert _gn_gate_open(p_gpu, X, x_px, valid, K, cfg, thr[k]) == gate, k
+        nxt = launch_gn(pose0, X, x_px, valid, K, thr[:k + 1], cfg.min_depth)
+        assert gate or torch.equal(nxt, p_gpu), k
+        p_gpu = nxt
+        p_plain = _gn_refine_plain(p_plain, X, x_px, valid, K, cfg, thr[k:k + 1])
+
+
+@pytest.mark.cuda
+def test_gn_kernel_takes_any_schedule_length(cuda_device):
+    """An empty schedule launches nothing; 130 iterations take three launches that hand
+    the pose on, and land where the plain version does; N = 0 points leaves the pose."""
+    from vo_tpu_torch.estimation.pnp import _gn_refine_plain
+    from vo_tpu_torch.ops.pnp_gn import launch_gn
+
+    cfg, _ = _gn_schedules()
+    pose0, X, x_px, valid, K = (t.to(cuda_device) for t in _gn_problem(2048, "mixed"))
+    before = launch_gn.launches
+    assert torch.equal(launch_gn(pose0, X, x_px, valid, K, [], cfg.min_depth), pose0)
+    thr = [16.0, 4.0] + [1.5] * 128
+    got = launch_gn(pose0, X, x_px, valid, K, thr, cfg.min_depth)
+    assert launch_gn.launches - before == 3
+    want = _gn_refine_plain(pose0, X, x_px, valid, K, cfg, thr)
+    assert (got - want).abs().max().item() < 1e-5
+    empty = launch_gn(pose0, X[:0], x_px[:0], valid[:0], K, thr[:10], cfg.min_depth)
+    assert torch.equal(empty, pose0)
+
+
+@pytest.mark.cuda
+def test_gn_kernel_in_a_graph_repeats_bit_for_bit(cuda_device):
+    """The solve captured into a CUDA graph: a launch at the capture goes to the
+    capture's tally, each replay counts one, and two replays and the eager call give
+    identical bits (a fixed reduction tree, no atomics)."""
+    from vo_tpu_torch.estimation.pnp import _gn_refine
+    from vo_tpu_torch.ops.pnp_gn import launch_gn
+
+    cfg, schedules = _gn_schedules()
+    pose0, X, x_px, valid, K = (t.to(cuda_device) for t in _gn_problem(2048, "far"))
+    eager = _gn_refine(pose0, X, x_px, valid, K, cfg, thresholds=schedules["anneal"])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    match.take_captured()
+    before = launch_gn.launches
+    with torch.cuda.graph(graph, stream=stream):
+        out = _gn_refine(pose0, X, x_px, valid, K, cfg, thresholds=schedules["anneal"])
+    tally = match.take_captured()
+    assert tally["gn"] == 1 and launch_gn.launches == before
+    reps = []
+    for _ in range(2):
+        graph.replay()
+        match.count_replay(tally)
+        reps.append(out.clone())
+    torch.cuda.synchronize()
+    assert launch_gn.launches - before == 2
+    assert torch.equal(reps[0], reps[1]) and torch.equal(reps[0], eager)
+
+
+@pytest.mark.cuda
+def test_streaming_stats_time_the_replays_and_count_the_solves(cuda_device, fresh_graphs):
+    """The streaming entry asked for ``stats``: the device seconds of its replays
+    (events read after its syncs, each replay a positive time below its chunk's wall
+    time) and two kernel solves per engine step, eager or replayed."""
+    from vo_tpu_torch.engine.pipeline import run_offline_vo_streaming
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, _ = render_sequence(12, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+    for _ in range(2):
+        stats: dict = {}
+        t0 = time.perf_counter()
+        batches = ((s, imgs[s:s + 4], deps[s:s + 4]) for s in range(0, 12, 4))
+        run_offline_vo_streaming(
+            batches, 12, K_SMALL, vo_config=_graph_config(seed=108),
+            extractor=OrbLikeExtractor(max_kp=512), prefetch=2, transfer_depth="sparse",
+            device=cuda_device, stats=stats)
+        wall = time.perf_counter() - t0
+        steps = stats["graph_replays"] + stats["eager_steps"]
+        assert steps == 11 and stats["gn_kernel_solves"] == 2 * steps
+        assert 0.0 < stats["engine_device_s"] < wall
 
 
 @pytest.mark.cuda

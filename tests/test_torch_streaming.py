@@ -205,6 +205,8 @@ def test_stream_stats(frames):
     imgs, _ = frames
     assert stats["chunks"] == 1 and stats["queue_wait_s"] >= 0.0
     assert stats["sync_wait_s"] == 0.0 and stats["engine_s"] > 0.0   # no device to wait on
+    # no graph to replay, and PnP's Gauss-Newton solves take the plain version
+    assert stats["engine_device_s"] == 0.0 and stats["gn_kernel_solves"] == 0
     # up: the images and 512 uint16 depths per frame; down: int16 pixels + packed rows
     assert stats["h2d_bytes"] == B * imgs[0].nbytes + B * 512 * 2
     assert stats["d2h_bytes"] == B * 512 * 2 * 2 + (B - 1) * 21 * 4

@@ -16,11 +16,13 @@ import numpy as np
 import torch
 
 from vo_tpu_torch.device import resolve_device, to_device
-from vo_tpu_torch.engine.vo import VOConfig, VOEngine, VOStepDiagnostics, step_counts
+from vo_tpu_torch.engine.vo import (ReplayTimer, VOConfig, VOEngine, VOStepDiagnostics,
+                                    step_counts)
 from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
 from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
 from vo_tpu_torch.features.stereo import stereo_depth_at
 from vo_tpu_torch.geometry.camera import depth_to_3d_at, unproject
+from vo_tpu_torch.ops.pnp_gn import launch_gn
 from vo_tpu_torch.port_state import state_from_numpy
 from vo_tpu_torch.utils.profiling import span, timed
 
@@ -306,7 +308,11 @@ def run_offline_vo_streaming(
     (``sync_wait_s``) and issuing the engine's steps (``engine_s``; the engine has no
     host sync, so this is its host time), ``h2d_bytes``, ``d2h_bytes``, ``chunks``, and
     the engine's steps replayed from its CUDA graph (``graph_replays``) and run eagerly
-    (``eager_steps``: every step off CUDA, the step before a capture on it).
+    (``eager_steps``: every step off CUDA, the step before a capture on it), the device
+    seconds of those replays (``engine_device_s``: CUDA events around each, read after
+    the readback that follows it, so no sync of their own; 0 off CUDA) and PnP's
+    Gauss-Newton solves through its kernel (``gn_kernel_solves``, the difference of
+    ``ops.pnp_gn.launch_gn.launches``).
     """
     if retain not in ("all", "sparse"):
         raise ValueError(f"retain must be 'all' or 'sparse', got {retain!r}")
@@ -319,6 +325,9 @@ def run_offline_vo_streaming(
     Kd = to_device(np.asarray(K, np.float32), dev)
     engine = VOEngine(vo_config, device=dev)
     steps0 = dict(step_counts)
+    gn0 = launch_gn.launches
+    timer = engine.replay_timer = (ReplayTimer() if stats is not None and dev.type == "cuda"
+                                   else None)
 
     q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
     stop = threading.Event()
@@ -413,17 +422,20 @@ def run_offline_vo_streaming(
 
     # One-chunk software pipeline: chunk i's results are read after chunk i+1's work
     # has been issued.
-    pending = None   # (start, B, lo, n_real, end, feats, kp3d, packed_host, event, state)
+    pending = None   # (start, B, lo, n_real, end, feats, kp3d, packed_host, event, state,
+    #                   the replay timer's mark after the chunk's steps)
 
     def flush(synced: bool = False):
         """Consume the pending chunk's results (``synced``: its copy is known done)."""
         nonlocal pending, since_ckpt
         if pending is None:
             return
-        start, B, lo, n_real, end, feats, kp3d, packed_host, ev, st = pending
+        start, B, lo, n_real, end, feats, kp3d, packed_host, ev, st, mark = pending
         pending = None
         if not synced:
             wait(ev, "flush")
+        if timer is not None:
+            timer.read(mark)                  # the chunk's replays ran before ``ev``
         with span("stream.flush"):
             poses_np, diag_np = _unpack_chunk_results(packed_host.numpy())
             poses_list.append(poses_np[:n_real])
@@ -509,8 +521,9 @@ def run_offline_vo_streaming(
                     d2h_bytes += packed.numel() * 4
                     packed_ev = record_event()
                 flush()                           # read chunk i-1 while chunk i computes
+                mark = timer.mark() if timer is not None else 0
                 pending = (start, B, lo, n_real, end, feats, kp3d, packed_host, packed_ev,
-                           state)
+                           state, mark)
                 next_frame = end
     finally:
         stop.set()
@@ -525,7 +538,9 @@ def run_offline_vo_streaming(
         stats.update(queue_wait_s=queue_wait, sync_wait_s=sync_wait, engine_s=engine_s,
                      h2d_bytes=up.bytes + h2d_sparse, d2h_bytes=d2h_bytes, chunks=n_chunks,
                      **{k: step_counts[k] - steps0[k] for k in ("graph_replays",
-                                                                "eager_steps")})
+                                                                "eager_steps")},
+                     engine_device_s=timer.seconds if timer is not None else 0.0,
+                     gn_kernel_solves=launch_gn.launches - gn0)
 
     feats = Features(*(torch.cat([c[0][i] for c in feat_chunks]) for i in range(4)))
     kp3d = torch.cat([c[1] for c in feat_chunks])

@@ -22,12 +22,14 @@ with that signature replays the same graph. Elsewhere it calls ``_step``. Both r
 same kernels in the same order, so their results are equal bit for bit. The graphs
 share one memory pool and their static buffers, so their replays are serialised: a
 replay on another stream than the last one waits for that stream first. Calls from
-several threads at once are not supported.
+several threads at once are not supported. An engine's ``replay_timer``, when set to a
+``ReplayTimer``, times each replay on the device with CUDA events.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, replace
 from typing import NamedTuple
 
@@ -115,6 +117,36 @@ def _graph_key(engine: "VOEngine", K, state: VOState, per_frame) -> tuple:
             *(_signature(x[0]) for x in per_frame))
 
 
+class ReplayTimer:
+    """Device time of the step graph's replays: a pair of CUDA events around each on
+    the current stream. ``mark()`` numbers the replays recorded so far; ``read(mark)``,
+    called once the host knows those replays have run (after a synchronisation that
+    waits for work queued after them), adds their time to ``seconds`` and drops their
+    events. Reading never waits on the device."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._events: deque = deque()
+        self._recorded = self._read = 0
+
+    def record(self, fn) -> None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        self._events.append((start, end))
+        self._recorded += 1
+
+    def mark(self) -> int:
+        return self._recorded
+
+    def read(self, mark: int) -> None:
+        while self._read < mark:
+            start, end = self._events.popleft()
+            self.seconds += start.elapsed_time(end) / 1e3
+            self._read += 1
+
+
 class _StepGraph:
     """One captured ``_step``: static buffers for K, the carry and one frame's inputs;
     the graph, which reads them and writes the new carry back into the carry's buffers;
@@ -169,11 +201,15 @@ class _StepGraph:
         for dst, src in zip(self.state, state):
             dst.copy_(src)
 
-    def replay(self, inputs) -> None:
-        """One step from the carry in the buffers, on this frame's inputs."""
+    def replay(self, inputs, timer: ReplayTimer | None = None) -> None:
+        """One step from the carry in the buffers, on this frame's inputs; ``timer``
+        records events around the graph's replay."""
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
-        self.graph.replay()
+        if timer is None:
+            self.graph.replay()
+        else:
+            timer.record(self.graph.replay)
         step_counts["graph_replays"] += 1
         match_ops.count_replay(self.launches)
 
@@ -184,6 +220,7 @@ class VOEngine:
     def __init__(self, config: VOConfig = VOConfig(), device: str | torch.device | None = None):
         self.config = config
         self.device = resolve_device(device)
+        self.replay_timer: ReplayTimer | None = None
 
     def _match(self, desc_a, desc_b, valid_a, valid_b):
         cfg = self.config
@@ -323,7 +360,7 @@ class VOEngine:
             g.load(K, state)
             for i in range(start, n):
                 with span("engine.step", frame=frame(i), graph=True):
-                    g.replay([x[i] for x in per_frame])
+                    g.replay([x[i] for x in per_frame], self.replay_timer)
                     for out, x in zip(outs, (g.pose, *g.diag)):
                         out[i].copy_(x)
             state = VOState(*(t.clone() for t in g.state))

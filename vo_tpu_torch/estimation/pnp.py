@@ -5,6 +5,10 @@ draws as ``jax.random``); hypotheses come from a 3-point Kabsch bank (when the c
 frame has depth) and a 6-point DLT bank; all hypotheses score all N correspondences;
 the best seeds a fixed-iteration reweighted Gauss-Newton polish. Shapes never depend
 on the data and nothing here reads a value back to the host.
+
+The Gauss-Newton solve (``_gn_refine``) runs as one hand-written CUDA kernel on CUDA
+tensors (``ops/pnp_gn.py``); its plain version, ``_gn_refine_plain``, serves CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from vo_tpu_torch import prng
 from vo_tpu_torch.estimation.procrustes import kabsch
 from vo_tpu_torch.geometry.se3 import pose_from_rt, se3_exp
 from vo_tpu_torch.geometry.so3 import hat
+from vo_tpu_torch.ops.pnp_gn import launch_gn
 from vo_tpu_torch.ops.smalllinalg import det3x3, smallest_eigvec, solve_spd_small, svd3x3
 from vo_tpu_torch.utils.profiling import span
 
@@ -107,15 +112,23 @@ def _reproject_residuals(pose, X, x_px, K):
 
 
 def _gn_refine(pose, X, x_px, valid, K, cfg: PnPConfig, thresholds=None):
-    """Fixed-iteration reweighted Gauss-Newton over SE(3), masked (no gathers).
+    """Fixed-iteration reweighted Gauss-Newton over SE(3), masked (no gathers): the
+    plain version on the CPU, one launch of the CUDA kernel (``ops/pnp_gn.py``) on CUDA.
 
     ``thresholds``: per-iteration inlier cutoffs in px; default repeats
     cfg.reproj_threshold (a tight polish). A wide-to-tight schedule turns the same
     loop into a wide-basin solver.
     """
-    fx, fy = K[0, 0], K[1, 1]
     if thresholds is None:
         thresholds = [cfg.reproj_threshold] * cfg.gn_iterations
+    if X.device.type == "cpu":
+        return _gn_refine_plain(pose, X, x_px, valid, K, cfg, thresholds)
+    return launch_gn(pose, X, x_px, valid, K, thresholds, cfg.min_depth)
+
+
+def _gn_refine_plain(pose, X, x_px, valid, K, cfg: PnPConfig, thresholds):
+    """``_gn_refine`` in plain PyTorch ops: the kernel's oracle."""
+    fx, fy = K[0, 0], K[1, 1]
     eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
     eye3 = torch.eye(3, dtype=X.dtype, device=X.device).expand(X.shape[0], 3, 3)
     for thr in thresholds:

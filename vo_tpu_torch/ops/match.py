@@ -48,7 +48,8 @@ def _nvcc() -> str:
 
 
 def build_match_kernel() -> tuple[str, float, str]:
-    """Compile both match kernels for sm_90a into one library in the build directory.
+    """Compile the port's kernels (every ``.cu`` of ``csrc/``: both match kernels and
+    PnP's Gauss-Newton kernel) for sm_90a into one library in the build directory.
 
     Returns (library path, seconds spent, compiler output with ptxas's register and
     spill lines). A library built from the same sources (every file of ``csrc/``) is
@@ -79,12 +80,19 @@ _lib = None
 
 
 def load_library(path: str) -> ctypes.CDLL:
-    """A built library with the argument types of both entry points set."""
+    """A built library with the argument types of its entry points set (a library
+    built from part of ``csrc/``, as ``match_timing`` builds them, lacks the
+    Gauss-Newton entry)."""
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.vo_top2_mutual_simt, lib.vo_top2_mutual_wgmma):
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
         fn.restype = i
+    if hasattr(lib, "vo_pnp_gn"):
+        lib.vo_pnp_gn.argtypes = [p, p, p, p, p, ctypes.POINTER(f), i, f, i, p, p]
+        lib.vo_pnp_gn.restype = i
+        lib.vo_pnp_gn_launches.argtypes = [i]
+        lib.vo_pnp_gn_launches.restype = i
     return lib
 
 
@@ -271,31 +279,37 @@ def _launch(name, entry, a, b, va, vb, bf16):
     return nn12, top2, nn21
 
 
-# The launches recorded by CUDA graph captures since the last ``take_captured``.
-_captured = {"wgmma": 0, "simt": 0}
+# The launches recorded by CUDA graph captures since the last ``take_captured``, by
+# kernel ("gn": ``ops/pnp_gn.py::launch_gn``), and the function whose ``launches``
+# counts each kernel's.
+_captured = {"wgmma": 0, "simt": 0, "gn": 0}
+_counters: dict = {}
 
 
-def _count(kernel: str, fn) -> None:
-    """One launch of ``kernel``: on ``fn.launches``, or on the capture's tally when the
-    current stream is capturing a CUDA graph."""
+def _count(kernel: str, fn, n: int = 1) -> None:
+    """``n`` launches of ``kernel``: on ``fn.launches``, or on the capture's tally when
+    the current stream is capturing a CUDA graph."""
+    _counters[kernel] = fn
     if torch.cuda.is_current_stream_capturing():
-        _captured[kernel] += 1
+        _captured[kernel] += n
     else:
-        fn.launches += 1
+        fn.launches += n
 
 
 def take_captured() -> dict:
-    """-> the launches captured since the last call, {"wgmma": n, "simt": n}, and start
-    a new tally: call it before a capture and after it, to get what the graph holds."""
+    """-> the launches captured since the last call, {"wgmma": n, "simt": n, "gn": n},
+    and start a new tally: call it before a capture and after it, to get what the graph
+    holds."""
     out = dict(_captured)
-    _captured.update(wgmma=0, simt=0)
+    _captured.update(dict.fromkeys(_captured, 0))
     return out
 
 
 def count_replay(tally: dict) -> None:
     """Count one replay of a graph that captured ``tally`` (``take_captured``)."""
-    launch_wgmma.launches += tally["wgmma"]
-    launch_simt.launches += tally["simt"]
+    for kernel, n in tally.items():
+        if n:
+            _counters[kernel].launches += n
 
 
 def launch_simt(a, b, va, vb):
@@ -320,6 +334,7 @@ def launch_wgmma(a, b, va, vb):
 
 
 launch_wgmma.launches = 0
+_counters.update(wgmma=launch_wgmma, simt=launch_simt)
 
 
 def top2_mutual(desc_a, desc_b, valid_a=None, valid_b=None, bf16: bool = False):
