@@ -378,16 +378,22 @@ def _device_profile(fn):
 
 
 def _counts() -> dict:
-    from vo_tpu_torch.ops import match
+    """Every registered kernel's launches: {"wgmma": n, "simt": n, "gn": n}."""
+    from vo_tpu_torch.ops import kernels, match, pnp_gn  # noqa: F401 (they register)
 
-    return {"wgmma": match.launch_wgmma.launches, "simt": match.launch_simt.launches}
+    return {name: fn.launches for name, fn in kernels.counters().items()}
 
 
 def _reset_counts() -> None:
-    from vo_tpu_torch.ops import match
-    from vo_tpu_torch.ops.pnp_gn import launch_gn
+    from vo_tpu_torch.ops import kernels, match, pnp_gn  # noqa: F401 (they register)
 
-    match.launch_wgmma.launches = match.launch_simt.launches = launch_gn.launches = 0
+    for fn in kernels.counters().values():
+        fn.launches = 0
+
+
+def _matches(counts: dict) -> dict:
+    """The match kernels' launches of ``counts``, which the paths' gates hold."""
+    return {k: counts[k] for k in ("wgmma", "simt")}
 
 
 KERNELS = ("top2_wgmma_kernel", "top2_simt_kernel")
@@ -806,7 +812,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         counts = _counts()
         if res.rc != 0 or res.loader != "native":
             raise AssertionError(f"CLI run: rc {res.rc}, loader {res.loader!r}")
-        if counts != {"wgmma": F - 1, "simt": 0}:
+        if _matches(counts) != {"wgmma": F - 1, "simt": 0}:
             raise AssertionError(f"CLI run launches {counts}, expected {F - 1} wgmma, 0 simt")
         written = np.load(orb_npy)
         if written.shape != (F, 4, 4) or not np.array_equal(written, res.poses):
@@ -846,8 +852,8 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         print(f"resume from frame {next_frame} to {2 * F_PART}: launches {counts_r}, largest "
               f"pose difference to the uninterrupted run {diff_r:.3e}, identical = "
               f"{diff_r == 0.0}")
-        if (counts_r != {"wgmma": F_PART, "simt": 0} or resumed.poses.shape[0] != 2 * F_PART
-                or diff_r > 1e-5):
+        if (_matches(counts_r) != {"wgmma": F_PART, "simt": 0}
+                or resumed.poses.shape[0] != 2 * F_PART or diff_r > 1e-5):
             raise AssertionError("the resumed run does not reproduce the uninterrupted one")
 
         # The SIFT config through the CLI.
@@ -858,8 +864,8 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         counts_s = _counts()
         print(f"CLI, SIFT config, {m} frames: launches {counts_s}, accept "
               f"{float(np.mean(sres.diag.accepted)):.3f}")
-        if (counts_s != {"wgmma": 0, "simt": m - 1} or sres.poses.shape != (m, 4, 4)
-                or not np.isfinite(sres.poses).all()):
+        if (_matches(counts_s) != {"wgmma": 0, "simt": m - 1}
+                or sres.poses.shape != (m, 4, 4) or not np.isfinite(sres.poses).all()):
             raise AssertionError("the SIFT config through the CLI failed")
 
         # The SURF config through the CLI (box-filter Hessian + SURF-64, ratio_float).
@@ -871,8 +877,9 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         print(f"CLI, SURF config, {m} frames: launches {surf_counts}, accept "
               f"{float(np.mean(ures.diag.accepted)):.3f}, final drift "
               f"{float(np.linalg.norm(ures.poses[-1, :3, 3] - gt[m - 1, :3, 3])):.3f} m")
-        if (surf_counts != {"wgmma": 0, "simt": m - 1} or ures.poses.shape != (m, 4, 4)
-                or not np.isfinite(ures.poses).all() or np.mean(ures.diag.accepted) <= 0.8):
+        if (_matches(surf_counts) != {"wgmma": 0, "simt": m - 1}
+                or ures.poses.shape != (m, 4, 4) or not np.isfinite(ures.poses).all()
+                or np.mean(ures.diag.accepted) <= 0.8):
             raise AssertionError("the SURF config through the CLI failed")
 
         # The per-frame API on the first 16 decoded frames.
@@ -885,7 +892,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         diff_o = float(np.abs(on_poses - ref_poses[:n_on]).max())
         print(f"OnlineVO, {n_on} frames: launches {counts_o}, largest pose difference to "
               f"run_offline_vo {diff_o:.3e}")
-        if counts_o != {"wgmma": n_on - 1, "simt": 0} or diff_o > 1e-4:
+        if _matches(counts_o) != {"wgmma": n_on - 1, "simt": 0} or diff_o > 1e-4:
             raise AssertionError("OnlineVO disagrees with run_offline_vo")
 
         sub_s["checks"] = time.perf_counter() - t_checks
@@ -996,7 +1003,7 @@ def _plain_matcher_identical(name, cfg, feats, kp3d, Kd, poses, dev) -> None:
     before = _counts()
     plain, _ = VOEngine(dataclasses.replace(cfg, use_match_kernel=False),
                         device=dev).run_sequence(*feats, kp3d, Kd)
-    if _counts() != before:
+    if _matches(_counts()) != _matches(before):
         raise AssertionError(f"{name}: the plain-matcher engine launched a match kernel")
     same = bool(torch.equal(plain.cpu(), torch.as_tensor(poses).cpu()))
     print(f"{name}: kernel vs plain matcher engine runs ({len(kp3d)} frames): poses "
@@ -1068,7 +1075,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
     counts = _counts()
     sposes, accepted = sposes.cpu().numpy(), sdiag.accepted.cpu().numpy()
     launches["stereo"] = counts["wgmma"]
-    if counts != {"wgmma": n - 1, "simt": 0}:
+    if _matches(counts) != {"wgmma": n - 1, "simt": 0}:
         raise AssertionError(f"stereo path launches {counts}, expected {n - 1} wgmma")
     z, kp = skp3d[..., 2].cpu().numpy(), sfeats.kp.cpu().numpy()
     valid = sfeats.valid.cpu().numpy()
@@ -1122,7 +1129,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
           f"{[int(i) + 1 for i in np.nonzero(~adiag.accepted)[0]]}), keyframe promotions "
           f"{int(adiag.promoted_keyframe.sum())}, accept {accept:.4f}; run_offline_vo "
           f"{a_ms:.3f} ms/frame")
-    if counts != {"wgmma": n - 1, "simt": 0}:
+    if _matches(counts) != {"wgmma": n - 1, "simt": 0}:
         raise AssertionError(f"adversarial path launches {counts}, expected {n - 1} wgmma")
     if not (_gate("adversarial path", aposes, adiag.accepted, gt, counts["wgmma"])
             and 0.8 < accept < 1.0):
@@ -1147,7 +1154,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
         extraction_batch=EXTRACT_BATCH, return_features=True, device=dev)
     counts = _counts()
     launches["surf"] = counts["simt"]
-    if counts != {"wgmma": 0, "simt": m - 1}:
+    if _matches(counts) != {"wgmma": 0, "simt": m - 1}:
         raise AssertionError(f"SURF path launches {counts}, expected {m - 1} simt, 0 wgmma")
     if ufeats.desc.shape[1:] != (2048, 64) or ufeats.desc.dtype != torch.bfloat16:
         raise AssertionError(f"SURF descriptors {tuple(ufeats.desc.shape)} {ufeats.desc.dtype}")
@@ -1178,7 +1185,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
         extraction_batch=EXTRACT_BATCH, return_features=True, device=dev)
     counts = _counts()
     launches["oriented"] = counts["wgmma"]
-    if counts != {"wgmma": m - 1, "simt": 0}:
+    if _matches(counts) != {"wgmma": m - 1, "simt": 0}:
         raise AssertionError(f"oriented path launches {counts}, expected {m - 1} wgmma")
     if not _gate(f"oriented BRIEF path, {m} frames", oposes, odiag.accepted, gt[:m],
                  counts["wgmma"]):
@@ -1277,7 +1284,7 @@ def _refinement_phase(card, imgs, deps, cfg, extractor, errs) -> dict:
         imgs, deps, K, vo_config=cfg, extractor=extractor, extraction_batch=EXTRACT_BATCH,
         return_features=True, device="cuda")
     counts = _counts()
-    if counts != {"wgmma": LF - 1, "simt": 0}:
+    if _matches(counts) != {"wgmma": LF - 1, "simt": 0}:
         raise AssertionError(f"loop odometry launches {counts}, expected {LF - 1} wgmma")
     _gate("loop workload odometry", poses, diag.accepted, gt, counts["wgmma"])
     sub_s["odometry"] = time.perf_counter() - t0
@@ -1307,7 +1314,7 @@ def _refinement_phase(card, imgs, deps, cfg, extractor, errs) -> dict:
           f"verification); breakdown match {timing.get('match_s', 0.0):.3f} s, BA "
           f"{timing.get('ba_s', 0.0):.3f} s, host {timing.get('host_s', 0.0):.3f} s; warm "
           f"run's closed poses within {float(np.abs(closed_w - closed).max()):.2e}")
-    if counts != {"wgmma": n_verified, "simt": 0} or n_verified == 0:
+    if _matches(counts) != {"wgmma": n_verified, "simt": 0} or n_verified == 0:
         raise AssertionError(f"refine_full launches {counts} for {n_verified} verifications")
     # Fixed-order block sums in BA and the pose graph: the warm run repeats the cold.
     if not np.array_equal(closed_w, closed):
@@ -1381,7 +1388,7 @@ def _refinement_phase(card, imgs, deps, cfg, extractor, errs) -> dict:
     print(f"refine_full drifted: drift {dn:.4f} -> {dc:.4f} m, ATE {an:.4f} -> {ac:.4f} m")
     if not (info_n["ran_ba"] and kept and all(w["mean_reproj"] < 2.0 for w in kept)
             and dc < dn and ac < an
-            and counts_n == {"wgmma": refine.verify_row_pairs.pairs, "simt": 0}):
+            and _matches(counts_n) == {"wgmma": refine.verify_row_pairs.pairs, "simt": 0}):
         raise AssertionError("the BA branch failed")
     sub_s["ba_branch"] = time.perf_counter() - t0
 
@@ -1465,7 +1472,7 @@ def _refine_cli(card, imgs, deps, gt) -> int:
               f"{len(res.refine['keyframes'])} keyframes, branch "
               f"{'BA' if res.refine['ran_ba'] else 'no BA'}, {n_verified} verifications, "
               f"launches {counts}")
-        if res.rc != 0 or counts != {"wgmma": n - 1 + n_verified, "simt": 0}:
+        if res.rc != 0 or _matches(counts) != {"wgmma": n - 1 + n_verified, "simt": 0}:
             raise AssertionError(f"CLI --refine: rc {res.rc}, launches {counts}")
         saved = np.load(odo + ".npy")
         if not (np.array_equal(saved, res.refine["refined_odometry"])
@@ -1499,12 +1506,12 @@ def _mono_phase(card, feats, kp3d, gt, errs, dev="cuda") -> int:
     _reset_counts()
     poses, diag, ms = _engine_run(MonoVOEngine(cfg, device=dev), args[:3], args[3], Kd)
     counts = _counts()
-    if counts != {"wgmma": m - 1, "simt": 0}:
+    if _matches(counts) != {"wgmma": m - 1, "simt": 0}:
         raise AssertionError(f"mono path launches {counts}, expected {m - 1} wgmma, 0 simt")
     before = _counts()
     plain, _ = MonoVOEngine(dataclasses.replace(cfg, use_match_kernel=False),
                             device=dev).run_sequence(*args)
-    if _counts() != before:
+    if _matches(_counts()) != _matches(before):
         raise AssertionError("the plain-matcher mono engine launched a match kernel")
     same = bool(torch.equal(plain, poses))
     poses_np = poses.cpu().numpy()
@@ -1639,7 +1646,7 @@ def _longrun_phase(card, seq_dir) -> dict:
     print(f"long run report: {json.dumps(report)}")
     warm = 3 * 16 - 1                         # the runner's warm-up: 3 batches of 16
     expected = {"wgmma": warm + F_LONG - 1 + n_verified, "simt": 0}
-    ok = (rc == 0 and counts == expected
+    ok = (rc == 0 and _matches(counts) == expected
           and report["seg_trans_err_pct"] < 1.5
           and report["seg_rot_err_deg_100m"] < 2.0 and report["accept_rate"] > 0.8
           and report["checkpoint_written"] and report["refined_finite"]
@@ -1764,7 +1771,7 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
     poses, diag, engine_ms = _engine_run(VOEngine(cfg, device=dev), feats3, kp3d, Kd)
     counts = _counts()
     poses_np = poses.cpu().numpy()
-    if counts != {"wgmma": 0, "simt": m - 1} or not np.isfinite(poses_np).all():
+    if _matches(counts) != {"wgmma": 0, "simt": m - 1} or not np.isfinite(poses_np).all():
         raise AssertionError(f"R2D2 path launches {counts} (expected {m - 1} simt, 0 "
                              f"wgmma), poses finite {np.isfinite(poses_np).all()}")
     res = KittiOdomEvaluator().evaluate(gt[:m], poses_np)
@@ -1781,7 +1788,7 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
     before = _counts()
     plain, _ = VOEngine(dataclasses.replace(cfg, use_match_kernel=False),
                         device=dev).run_sequence(*(f[:n] for f in feats3), kp3d[:n], Kd)
-    if _counts() != before:
+    if _matches(_counts()) != _matches(before):
         raise AssertionError("the plain-matcher engine launched a match kernel")
     dpos = (plain - poses[:n]).abs().amax(dim=(1, 2)).cpu().numpy()
     first = int(np.argmax(dpos > 0)) if (dpos > 0).any() else None
@@ -2061,7 +2068,7 @@ def _training_phase(card, errs, dev="cuda") -> dict:
           f"mean_matches {report['trained_mean_matches']}, match_support_ok "
           f"{report['match_support_ok']}, train_seconds {report['train_seconds']}, device "
           f"{report['device']}; match launches {counts} for {n_pairs} evaluated pairs")
-    if rc != 0 or counts != {"wgmma": 0, "simt": n_pairs}:
+    if rc != 0 or _matches(counts) != {"wgmma": 0, "simt": n_pairs}:
         raise AssertionError(f"retrain_parity: rc {rc}, launches {counts}, expected "
                              f"{n_pairs} simt")
 
@@ -2135,7 +2142,7 @@ def _distributed_phase(card, imgs, deps, errs) -> dict:
                               deps[:F_DIST], K, 2048, 21, 1)
     torch.cuda.synchronize()
     counts = _counts()
-    if counts != {"wgmma": F_DIST - 1, "simt": 0}:
+    if _matches(counts) != {"wgmma": F_DIST - 1, "simt": 0}:
         raise AssertionError(f"dry-run inference launches {counts}, expected "
                              f"{F_DIST - 1} wgmma, 0 simt")
     ref = dryrun.reference_inference(imgs[:F_DIST], deps[:F_DIST], K, 2048, 21, dev)
@@ -2374,14 +2381,13 @@ def _smoke(second, conn, work) -> None:
     from vo_tpu_torch.features.extractor import OrbLikeExtractor
     from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
     from vo_tpu_torch.io.native import build_loader
-    from vo_tpu_torch.ops import match
-    from vo_tpu_torch.ops.pnp_gn import launch_gn
+    from vo_tpu_torch.ops import kernels, match
     from vo_tpu_torch.utils.synthetic import slalom_trajectory
 
     # Phase 2: build (the match kernels and the native loader); then the second
     # process starts.
     t0 = time.perf_counter()
-    lib, build_s, ptxas = match.build_match_kernel()
+    lib, build_s, ptxas = kernels.build_kernels()
     print(f"build: {lib} in {build_s:.2f} s; native loader {build_loader()}")
     ptxas_lines = _ptxas_lines(ptxas)
     for line in ptxas_lines:
@@ -2439,14 +2445,14 @@ def _smoke(second, conn, work) -> None:
         extraction_batch=EXTRACT_BATCH, return_features=True, device="cuda")
     counts = _counts()
     launches = counts["wgmma"]
-    gn_launches = launch_gn.launches
+    gn_launches = counts["gn"]
     phase_s["main_path"] = time.perf_counter() - t0
     steps = {k: step_counts[k] - steps0[k] for k in step_counts}
     phase_s["main_path_graph_capture"] = steps["capture_s"]
     print(f"main path engine steps: {steps['graph_captures']} CUDA-graph capture(s) in "
           f"{steps['capture_s']:.3f} s, {steps['graph_replays']} replays, "
           f"{steps['eager_steps']} eager")
-    if counts != {"wgmma": F - 1, "simt": 0}:
+    if _matches(counts) != {"wgmma": F - 1, "simt": 0}:
         raise AssertionError(f"main path launches {counts}, expected {F - 1} wgmma, 0 simt")
     print(f"main path Gauss-Newton kernel launches {gn_launches}")
     if gn_launches != 2 * (F - 1):
@@ -2479,7 +2485,7 @@ def _smoke(second, conn, work) -> None:
     poses_f, diag_f = VOEngine(VOConfig(**fcfg), device=dev).run_sequence(*fargs)
     torch.cuda.synchronize()
     counts_f = _counts()
-    if counts_f != {"wgmma": 0, "simt": F_FLOAT - 1}:
+    if _matches(counts_f) != {"wgmma": 0, "simt": F_FLOAT - 1}:
         raise AssertionError(f"float path launches {counts_f}, expected {F_FLOAT - 1} simt")
     traced["float-mode path"] = _traced_replays(
         "float-mode path", VOEngine(VOConfig(**fcfg), device=dev), fargs, "top2_simt_kernel")
@@ -2506,7 +2512,7 @@ def _smoke(second, conn, work) -> None:
         imgs, deps, K, vo_config=VOConfig(**sift_cfg), extractor=sift,
         extraction_batch=EXTRACT_BATCH, return_features=True, device="cuda")
     counts_s = _counts()
-    if counts_s != {"wgmma": 0, "simt": F - 1}:
+    if _matches(counts_s) != {"wgmma": 0, "simt": F - 1}:
         raise AssertionError(f"SIFT path launches {counts_s}, expected {F - 1} simt, 0 wgmma")
     m = F_TIMED // 2 + 1
     traced["SIFT path"] = _traced_replays(

@@ -174,7 +174,7 @@ def test_version_is_the_jax_packages():
 def test_subpackage_exports(sub):
     """Each subpackage re-exports every name the JAX package's ``__init__`` imports,
     defined in the port, and importing it builds no kernel."""
-    from vo_tpu_torch.ops import match
+    from vo_tpu_torch.ops import kernels
 
     names = _imported(_tree(JAX_PKG / sub / "__init__.py"))
     tmod = importlib.import_module(f"vo_tpu_torch.{sub}")
@@ -182,7 +182,7 @@ def test_subpackage_exports(sub):
         assert hasattr(tmod, name), name
         assert getattr(tmod, name).__module__.startswith("vo_tpu_torch."), name
     assert len(SUBPACKAGES) == 14
-    assert match._lib is None
+    assert kernels._lib is None
 
 
 def test_apply_patchnet_train_by_position():

@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from vo_tpu_torch.ops import match
+from vo_tpu_torch.ops import kernels, match
 from vo_tpu_torch.ops.match_timing import sift_like
 
 
@@ -1076,16 +1076,16 @@ def test_gn_kernel_in_a_graph_repeats_bit_for_bit(cuda_device):
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
-    match.take_captured()
+    kernels.begin_capture(cuda_device, stream.cuda_stream)
     before = launch_gn.launches
     with torch.cuda.graph(graph, stream=stream):
         out = _gn_refine(pose0, X, x_px, valid, K, cfg, thresholds=schedules["anneal"])
-    tally = match.take_captured()
-    assert tally["gn"] == 1 and launch_gn.launches == before
+    capture = kernels.end_capture(cuda_device, stream.cuda_stream)
+    assert capture.launches["gn"] == 1 and launch_gn.launches == before
     reps = []
     for _ in range(2):
         graph.replay()
-        match.count_replay(tally)
+        capture.replayed()
         reps.append(out.clone())
     torch.cuda.synchronize()
     assert launch_gn.launches - before == 2

@@ -22,6 +22,7 @@ from vo_tpu_torch import config as tconfig
 from vo_tpu_torch.io import dataset as tdataset
 from vo_tpu_torch.io import native as tnative
 from vo_tpu_torch.io import poses as tposes
+from vo_tpu_torch.ops import kernels as tkernels
 from vo_tpu_torch.port_state import config_from_jax
 
 K = np.array([[260.0, 0.0, 160.0], [0.0, 260.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
@@ -141,24 +142,22 @@ def test_decode_failure_raises(gray_dir, tmp_path):
 
 
 def test_loader_builds_into_build_dir_and_rebuilds(tmp_path, monkeypatch):
-    """The port builds its own library (never native/'s), rebuilds it when the source
-    is newer, and raises with the compiler's output when the build fails."""
+    """The port builds its own library (never native/'s), named by its source's
+    content, rebuilds it when the source changes, and raises with the compiler's output
+    when the build fails."""
     lib = tnative.build_loader()
-    assert lib == tnative.LIB_PATH and os.path.exists(lib)
-    assert os.path.basename(os.path.dirname(lib)) == "_build"
-    assert os.path.getmtime(lib) >= os.path.getmtime(tnative._SRC)
+    assert os.path.exists(lib) and os.path.basename(os.path.dirname(lib)) == "_build"
+    assert os.path.basename(lib).startswith("libvoloader_")
 
     src = tmp_path / "vo_loader.cpp"
     shutil.copy(tnative._SRC, src)
     monkeypatch.setattr(tnative, "_SRC", str(src))
-    monkeypatch.setattr(tnative, "_BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(tnative, "LIB_PATH", str(tmp_path / "build" / "libvoloader.so"))
+    monkeypatch.setattr(tkernels, "BUILD_DIR", str(tmp_path / "build"))
     first = tnative.build_loader()
     stamp = os.path.getmtime(first)
     assert tnative.build_loader() == first and os.path.getmtime(first) == stamp
     src.write_text(src.read_text() + "\nthis is not C++;\n")
-    os.utime(src, (stamp + 10, stamp + 10))
-    with pytest.raises(RuntimeError, match="building the native loader failed(.|\n)*error"):
+    with pytest.raises(RuntimeError, match="building libvoloader failed(.|\n)*error"):
         tnative.build_loader()
     assert os.path.getmtime(first) == stamp          # the old library is left in place
     assert not [p for p in os.listdir(tmp_path / "build") if p.endswith(".tmp")]

@@ -159,23 +159,6 @@ def test_cpu_tensors_take_plain_version_without_launch():
     assert (tmatch.launch_wgmma.launches, tmatch.launch_simt.launches) == before
 
 
-def test_capture_tally_and_replay_counts(monkeypatch):
-    """A capture's launches are a tally apart from the counters (``take_captured`` hands
-    it over once); each replay of the graph adds its tally to the counters."""
-    monkeypatch.setattr(tmatch.launch_wgmma, "launches", 10)
-    monkeypatch.setattr(tmatch.launch_simt, "launches", 3)
-    monkeypatch.setattr(tmatch, "_captured", {"wgmma": 0, "simt": 0})
-    tmatch._captured["wgmma"] += 2
-    tally = tmatch.take_captured()
-    assert tally == {"wgmma": 2, "simt": 0}
-    assert tmatch.take_captured() == {"wgmma": 0, "simt": 0}
-    assert (tmatch.launch_wgmma.launches, tmatch.launch_simt.launches) == (10, 3)
-    for _ in range(3):
-        tmatch.count_replay(tally)
-    tmatch.count_replay({"wgmma": 0, "simt": 1})
-    assert (tmatch.launch_wgmma.launches, tmatch.launch_simt.launches) == (16, 4)
-
-
 GRID_SHAPES = [(2048, 2048, 256, 132), (1, 1, 256, 132), (63, 65, 100, 132),
                (129, 257, 64, 132), (2048, 20000, 256, 132), (5000, 300, 7, 114),
                (77, 1001, 256, 8), (2048, 2048, 128, 132), (300, 280, 130, 132)]

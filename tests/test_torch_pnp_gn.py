@@ -1,7 +1,7 @@
 """PnP's Gauss-Newton solve around its CUDA kernel, on the CPU: CPU tensors take the
 plain version and launch nothing, the kernel's wrapper refuses what the kernel does not
-take, its launches go to a CUDA graph capture's tally like the match kernels', and the
-engine's replay timer reads only the events it was told have completed. The kernel
+take, and the engine's replay timer reads only the events it was told have completed
+(its launches under a CUDA graph capture: tests/test_torch_kernels.py). The kernel
 against the plain version runs on the card (tests/test_torch_cuda.py)."""
 
 from __future__ import annotations
@@ -12,7 +12,6 @@ import torch
 
 from vo_tpu_torch.engine.vo import ReplayTimer
 from vo_tpu_torch.estimation.pnp import PnPConfig, _gn_refine, _gn_refine_plain
-from vo_tpu_torch.ops import match
 from vo_tpu_torch.ops import pnp_gn
 
 CFG = PnPConfig()
@@ -74,28 +73,6 @@ def test_operands_made_contiguous():
     (p, Xc, xc, vc, Kc), n = pnp_gn._inputs(pose.T.T, X.T.contiguous().T, x_px, valid, K.T.T)
     assert n == X.shape[0] and all(t.is_contiguous() for t in (p, Xc, xc, vc, Kc))
     assert torch.equal(Xc, X)
-
-
-def test_captured_solves_count_at_each_replay(monkeypatch):
-    """A launch while a stream captures goes to the tally; each replay of the graph
-    counts it on ``launch_gn.launches``; the match counters are left as they were."""
-    monkeypatch.setattr(pnp_gn.launch_gn, "launches", 5)
-    monkeypatch.setattr(match.launch_wgmma, "launches", 7)
-    monkeypatch.setattr(match, "_captured", {"wgmma": 0, "simt": 0, "gn": 0})
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
-    match._count("gn", pnp_gn.launch_gn)
-    match._count("gn", pnp_gn.launch_gn, 2)
-    match._count("wgmma", match.launch_wgmma)
-    tally = match.take_captured()
-    assert tally == {"wgmma": 1, "simt": 0, "gn": 3}
-    assert match.take_captured() == {"wgmma": 0, "simt": 0, "gn": 0}
-    assert pnp_gn.launch_gn.launches == 5
-    for _ in range(4):
-        match.count_replay(tally)
-    assert pnp_gn.launch_gn.launches == 5 + 12 and match.launch_wgmma.launches == 7 + 4
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    match._count("gn", pnp_gn.launch_gn)
-    assert pnp_gn.launch_gn.launches == 18 and match.take_captured()["gn"] == 0
 
 
 class _Event:

@@ -16,13 +16,11 @@ import numpy as np
 import torch
 
 from vo_tpu_torch.device import resolve_device, to_device
-from vo_tpu_torch.engine.vo import (ReplayTimer, VOConfig, VOEngine, VOStepDiagnostics,
-                                    step_counts)
+from vo_tpu_torch.engine.vo import ReplayTimer, VOConfig, VOEngine, VOStepDiagnostics
 from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
 from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
 from vo_tpu_torch.features.stereo import stereo_depth_at
 from vo_tpu_torch.geometry.camera import depth_to_3d_at, unproject
-from vo_tpu_torch.ops.pnp_gn import launch_gn
 from vo_tpu_torch.port_state import state_from_numpy
 from vo_tpu_torch.utils.profiling import span, timed
 
@@ -311,8 +309,8 @@ def run_offline_vo_streaming(
     (``eager_steps``: every step off CUDA, the step before a capture on it), the device
     seconds of those replays (``engine_device_s``: CUDA events around each, read after
     the readback that follows it, so no sync of their own; 0 off CUDA) and PnP's
-    Gauss-Newton solves through its kernel (``gn_kernel_solves``, the difference of
-    ``ops.pnp_gn.launch_gn.launches``).
+    Gauss-Newton solves through its kernel (``gn_kernel_solves``); the engine counts
+    the steps and the solves (``VOEngine.counts``).
     """
     if retain not in ("all", "sparse"):
         raise ValueError(f"retain must be 'all' or 'sparse', got {retain!r}")
@@ -324,8 +322,6 @@ def run_offline_vo_streaming(
         extractor = OrbLikeExtractor()
     Kd = to_device(np.asarray(K, np.float32), dev)
     engine = VOEngine(vo_config, device=dev)
-    steps0 = dict(step_counts)
-    gn0 = launch_gn.launches
     timer = engine.replay_timer = (ReplayTimer() if stats is not None and dev.type == "cuda"
                                    else None)
 
@@ -537,10 +533,8 @@ def run_offline_vo_streaming(
     if stats is not None:
         stats.update(queue_wait_s=queue_wait, sync_wait_s=sync_wait, engine_s=engine_s,
                      h2d_bytes=up.bytes + h2d_sparse, d2h_bytes=d2h_bytes, chunks=n_chunks,
-                     **{k: step_counts[k] - steps0[k] for k in ("graph_replays",
-                                                                "eager_steps")},
-                     engine_device_s=timer.seconds if timer is not None else 0.0,
-                     gn_kernel_solves=launch_gn.launches - gn0)
+                     **engine.counts(),
+                     engine_device_s=timer.seconds if timer is not None else 0.0)
 
     feats = Features(*(torch.cat([c[0][i] for c in feat_chunks]) for i in range(4)))
     kp3d = torch.cat([c[1] for c in feat_chunks])

@@ -40,8 +40,9 @@ from vo_tpu_torch.device import resolve_device
 from vo_tpu_torch.estimation.pnp import PnPConfig, pnp_ransac
 from vo_tpu_torch.geometry.se3 import orthonormalize_pose, pose_inverse
 from vo_tpu_torch.matching.matchers import mutual_nn_match, ratio_match, ratio_mutual_nn_match
-from vo_tpu_torch.ops import match as match_ops
+from vo_tpu_torch.ops import kernels
 from vo_tpu_torch.ops.match import ratio_match_fused, ratio_mutual_nn_match_fused
+from vo_tpu_torch.ops.pnp_gn import launch_gn
 from vo_tpu_torch.utils.profiling import span
 
 
@@ -87,11 +88,16 @@ class VOStepDiagnostics(NamedTuple):
     step_norm: torch.Tensor
 
 
-# Counters of the process, beside ``ops.match.launch_wgmma.launches``: CUDA graphs of
+# Counters of the process, beside the kernels' ``launches``: CUDA graphs of
 # the step captured, steps replayed from one, steps run eagerly through ``_step`` (every
 # step off CUDA; on CUDA the step before each capture), and the captures' host seconds.
 step_counts = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0,
                "capture_s": 0.0}
+
+def _counts() -> dict:
+    return {"graph_replays": step_counts["graph_replays"],
+            "eager_steps": step_counts["eager_steps"], "gn_kernel_solves": launch_gn.launches}
+
 
 # The captured steps by input signature, for the life of the process: the streaming
 # entry makes a new engine per call, and every engine with a signature shares its graph.
@@ -157,11 +163,11 @@ class _StepGraph:
         """-> (the graph, the (state, pose, diag) of ``inputs``' frame).
 
         The frame's step first runs eagerly on the device's capture stream, so that the
-        match kernels' scratch and cuBLAS's workspace for that stream exist before the
-        capture; its results are the frame's. The graph then takes the scratch out of
-        the match wrappers' cache, so that no later call on that stream (torch hands
-        streams out from a pool), and no later capture, can regrow or share it. The
-        capture is thread-local: a loader thread may upload meanwhile."""
+        kernels' per-stream state and cuBLAS's workspace for that stream exist before
+        the capture; its results are the frame's. The graph then keeps what
+        ``kernels.end_capture`` hands it: the launches it recorded, counted at each
+        replay, and that per-stream state. The capture is thread-local: a loader thread
+        may upload meanwhile."""
         dev = K.device
         cur = torch.cuda.current_stream(dev)
         if dev not in _capture_home:
@@ -172,13 +178,12 @@ class _StepGraph:
         g.state = VOState(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in state))
         g.inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in inputs]
         stream.wait_stream(cur)
-        match_ops.take_scratch(dev, stream.cuda_stream)
+        kernels.begin_capture(dev, stream.cuda_stream)
         with torch.cuda.stream(stream):
             with span("engine.step", frame=frame):
                 first = engine._step(K, state, *inputs)
         step_counts["eager_steps"] += 1
         g.graph = torch.cuda.CUDAGraph()
-        match_ops.take_captured()
         t0 = time.perf_counter()
         with span("engine.capture", frame=frame):
             with torch.cuda.graph(g.graph, pool=pool, stream=stream,
@@ -188,8 +193,7 @@ class _StepGraph:
                     dst.copy_(src)
         step_counts["capture_s"] += time.perf_counter() - t0
         step_counts["graph_captures"] += 1
-        g.launches = match_ops.take_captured()
-        g.scratch = match_ops.take_scratch(dev, stream.cuda_stream)
+        g.kernels = kernels.end_capture(dev, stream.cuda_stream)
         cur.wait_stream(stream)
         for t in (*first[0], first[1], *first[2]):
             t.record_stream(cur)
@@ -211,7 +215,7 @@ class _StepGraph:
         else:
             timer.record(self.graph.replay)
         step_counts["graph_replays"] += 1
-        match_ops.count_replay(self.launches)
+        self.kernels.replayed()
 
 
 class VOEngine:
@@ -221,6 +225,13 @@ class VOEngine:
         self.config = config
         self.device = resolve_device(device)
         self.replay_timer: ReplayTimer | None = None
+        self._counts0 = _counts()
+
+    def counts(self) -> dict:
+        """Since the engine was made, in the process: the steps replayed from a CUDA
+        graph (``graph_replays``) and run eagerly (``eager_steps``), and PnP's
+        Gauss-Newton solves through its kernel (``gn_kernel_solves``)."""
+        return {k: v - self._counts0[k] for k, v in _counts().items()}
 
     def _match(self, desc_a, desc_b, valid_a, valid_b):
         cfg = self.config

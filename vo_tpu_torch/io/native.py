@@ -1,8 +1,8 @@
 """ctypes binding of the native prefetching RGB-D loader (``native/vo_loader.cpp``).
 
 Port of ``vo_tpu/io/native.py``. The port builds the loader itself, at first use:
-``g++`` with the flags of ``native/Makefile`` into ``vo_tpu_torch/_build/libvoloader.so``
-(git-ignored), rebuilt when the source is newer than the library. A failed build raises
+``g++`` with the flags of ``native/Makefile`` into ``vo_tpu_torch/_build/libvoloader_
+<hash of the source>.so`` (``ops/kernels.py::compile_library``). A failed build raises
 with the compiler's output. ``NativeRGBDSequence.try_open`` returns ``None`` only where
 the loader's ``vol_open`` does: a directory without frame pairs, or a first PNG that
 does not decode.
@@ -13,46 +13,28 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-import subprocess
 import threading
 
 import numpy as np
 
+from vo_tpu_torch.ops.kernels import compile_library
+
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__)))), "native", "vo_loader.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "_build")
-LIB_PATH = os.path.join(_BUILD_DIR, "libvoloader.so")
 
 _lib = None
 _lock = threading.Lock()
 
 
 def build_loader() -> str:
-    """Compile the loader unless a library newer than its source exists; -> its path.
-
-    The compiler writes a temporary file that is renamed into place, so processes
-    that build at once never load a half-written library.
-    """
-    if not os.path.exists(_SRC):
-        raise FileNotFoundError(f"native loader source not found: {_SRC}")
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= os.path.getmtime(_SRC):
-        return LIB_PATH
+    """Compile the loader unless a library built from the same source exists; -> its
+    path."""
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) found to build the native loader")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [cxx, "-O3", "-std=c++17", "-fPIC", "-Wall", "-shared", _SRC, "-o", tmp,
-           "-lz", "-lpthread"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"building the native loader failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    return compile_library("libvoloader", [_SRC], lambda out: [
+        cxx, "-O3", "-std=c++17", "-fPIC", "-Wall", "-shared", _SRC, "-o", out, "-lz",
+        "-lpthread"])[0]
 
 
 def _load_lib() -> ctypes.CDLL:

@@ -62,26 +62,8 @@ def mutual_nn_match(desc_a, desc_b, valid_a=None, valid_b=None,
     return MatchResult(idx=nn12, mask=mask, sim=torch.where(mask, best_sim, 0.0))
 
 
-def ratio_mutual_nn_match(desc_a, desc_b, valid_a=None, valid_b=None,
-                          ratio: float = 0.90) -> MatchResult:
-    """Lowe ratio on unit-descriptor L2 distances + mutual-NN."""
-    sim = similarity_matrix(desc_a, desc_b, valid_a, valid_b)
-    nn12, top2_sim = _top2(sim)
-    nn21 = torch.argmax(sim, dim=0)
-    dists = _unit_dist(top2_sim)
-    ratios = dists[:, 0] / (dists[:, 1] + 1e-8)
-    ids = torch.arange(sim.shape[0], device=sim.device)
-    mask = (nn21[nn12] == ids) & (ratios <= ratio)
-    if valid_a is not None:
-        mask = mask & valid_a
-    return MatchResult(idx=nn12, mask=mask, sim=torch.where(mask, top2_sim[:, 0], 0.0))
-
-
-def ratio_match(desc_a, desc_b, valid_a=None, valid_b=None, ratio: float = 0.85,
-                binary_dim: int | None = None) -> MatchResult:
-    """kNN(k=2) + Lowe ratio on distances (hamming when ``binary_dim`` is given)."""
-    sim = similarity_matrix(desc_a, desc_b, valid_a, valid_b)
-    nn12, top2_sim = _top2(sim)
+def _ratio_mask(top2_sim, ratio: float, binary_dim: int | None = None, valid_a=None):
+    """Lowe ratio on the top-2 similarities' distances (hamming with ``binary_dim``)."""
     if binary_dim is not None:
         d1 = (binary_dim - top2_sim[:, 0]) * 0.5
         d2 = (binary_dim - top2_sim[:, 1]) * 0.5
@@ -92,8 +74,40 @@ def ratio_match(desc_a, desc_b, valid_a=None, valid_b=None, ratio: float = 0.85,
     if valid_a is not None:
         mask = mask & valid_a
     # Rows whose best hit was an invalid (masked) column carry sim ~ _NEG: drop them.
-    mask = mask & (top2_sim[:, 0] > _NEG * 0.5)
-    return MatchResult(idx=nn12, mask=mask, sim=torch.where(mask, top2_sim[:, 0], 0.0))
+    return mask & (top2_sim[:, 0] > _NEG * 0.5)
+
+
+def _mutual_ratio_mask(nn12, top2_sim, nn21, ratio: float, valid_a=None):
+    """Mutual-NN + Lowe ratio on the top-2 similarities' unit-descriptor L2 distances."""
+    dists = _unit_dist(top2_sim)
+    ratios = dists[:, 0] / (dists[:, 1] + 1e-8)
+    ids = torch.arange(nn12.shape[0], dtype=nn12.dtype, device=nn12.device)
+    mask = (nn21[nn12.long()] == ids) & (ratios <= ratio)
+    if valid_a is not None:
+        mask = mask & valid_a
+    return mask
+
+
+def _result(nn12, top2_sim, mask) -> MatchResult:
+    return MatchResult(idx=nn12.long(), mask=mask,
+                       sim=torch.where(mask, top2_sim[:, 0], 0.0))
+
+
+def ratio_mutual_nn_match(desc_a, desc_b, valid_a=None, valid_b=None,
+                          ratio: float = 0.90) -> MatchResult:
+    """Lowe ratio on unit-descriptor L2 distances + mutual-NN."""
+    sim = similarity_matrix(desc_a, desc_b, valid_a, valid_b)
+    nn12, top2_sim = _top2(sim)
+    nn21 = torch.argmax(sim, dim=0)
+    return _result(nn12, top2_sim, _mutual_ratio_mask(nn12, top2_sim, nn21, ratio, valid_a))
+
+
+def ratio_match(desc_a, desc_b, valid_a=None, valid_b=None, ratio: float = 0.85,
+                binary_dim: int | None = None) -> MatchResult:
+    """kNN(k=2) + Lowe ratio on distances (hamming when ``binary_dim`` is given)."""
+    sim = similarity_matrix(desc_a, desc_b, valid_a, valid_b)
+    nn12, top2_sim = _top2(sim)
+    return _result(nn12, top2_sim, _ratio_mask(top2_sim, ratio, binary_dim, valid_a))
 
 
 def matches_to_pairs(result: MatchResult) -> np.ndarray:

@@ -3,104 +3,38 @@
 ``top2_mutual`` returns (nn12, top2_sim, nn21), everything the ratio and mutual-NN
 matchers need, without materialising the (Na, Nb) similarity matrix:
 - on a CPU tensor it runs ``top2_mutual_plain``, the plain PyTorch version;
-- on a CUDA tensor it launches one of two hand-written kernels (built with nvcc at
-  first use, bound through ctypes) or raises. bf16 operands go to the tensor-core
-  kernel in ``csrc/match_wgmma.cu`` (``launch_wgmma``), fp32 operands to the CUDA-core
-  kernel in ``csrc/match_kernel.cu`` (``launch_simt``). Both take one launch per call,
-  cut the call alike (``match_grid``) and share their cached scratch. There is no
-  fallback from the card to the plain version or from one kernel to the other.
+- on a CUDA tensor it launches one of two hand-written kernels (built at first use and
+  bound through ctypes by ``ops/kernels.py``) or raises. bf16 operands go to the
+  tensor-core kernel in ``csrc/match_wgmma.cu`` (``launch_wgmma``), fp32 operands to
+  the CUDA-core kernel in ``csrc/match_kernel.cu`` (``launch_simt``). Both take one
+  launch per call, cut the call alike (``match_grid``) and share their cached scratch.
+  There is no fallback from the card to the plain version or from one kernel to the
+  other.
 
 ``launch_wgmma.launches`` and ``launch_simt.launches`` count kernel launches, so a run
-can show that its matches went through a kernel. A launch recorded into a CUDA graph
-runs nothing at the capture: it goes to the capture's tally (``take_captured``) instead,
-and each replay of the graph counts the tally it captured (``count_replay``).
+can show that its matches went through a kernel; a launch recorded into a CUDA graph is
+counted at each replay (``ops/kernels.py``). A graph keeps the scratch of its capture
+stream (``take_scratch``). The fused matchers apply the plain matchers' rules
+(``matching/matchers.py``) to the kernels' top-2.
 """
 
 from __future__ import annotations
 
 import ctypes
-import glob
-import hashlib
-import os
-import shutil
 import struct
-import subprocess
-import time
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from vo_tpu_torch.matching.matchers import MatchResult, _unit_dist
+from vo_tpu_torch.matching.matchers import (MatchResult, _mutual_ratio_mask, _ratio_mask,
+                                            _result)
+from vo_tpu_torch.ops import kernels
 
 _NEG = -1e30
-_CSRC = os.path.join(os.path.dirname(__file__), "csrc")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for cand in (shutil.which("nvcc"), CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
-
-
-def build_match_kernel() -> tuple[str, float, str]:
-    """Compile the port's kernels (every ``.cu`` of ``csrc/``: both match kernels and
-    PnP's Gauss-Newton kernel) for sm_90a into one library in the build directory.
-
-    Returns (library path, seconds spent, compiler output with ptxas's register and
-    spill lines). A library built from the same sources (every file of ``csrc/``) is
-    reused.
-    """
-    files = sorted(glob.glob(os.path.join(_CSRC, "*.cu*")))
-    digest = hashlib.sha256()
-    for path in files:
-        with open(path, "rb") as f:
-            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    lib = os.path.join(_BUILD_DIR, f"libvo_match_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(lib):
-        return lib, 0.0, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
-           *(f for f in files if f.endswith(".cu"))]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0, proc.stderr
-
-
-_lib = None
-
-
-def load_library(path: str) -> ctypes.CDLL:
-    """A built library with the argument types of its entry points set (a library
-    built from part of ``csrc/``, as ``match_timing`` builds them, lacks the
-    Gauss-Newton entry)."""
-    lib = ctypes.CDLL(path)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.vo_top2_mutual_simt, lib.vo_top2_mutual_wgmma):
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
-        fn.restype = i
-    if hasattr(lib, "vo_pnp_gn"):
-        lib.vo_pnp_gn.argtypes = [p, p, p, p, p, ctypes.POINTER(f), i, f, i, p, p]
-        lib.vo_pnp_gn.restype = i
-        lib.vo_pnp_gn_launches.argtypes = [i]
-        lib.vo_pnp_gn_launches.restype = i
-    return lib
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        _lib = load_library(build_match_kernel()[0])
-    return _lib
+# The match kernels' C entry points (``csrc/match_kernel.cu``, ``csrc/match_wgmma.cu``).
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 
 
 def _col_key(value: float, row: int) -> int:
@@ -220,10 +154,9 @@ def _sms(dev) -> int:
 _scratch: dict = {}
 
 
+@kernels.per_stream_state
 def take_scratch(dev, stream: int) -> dict | None:
-    """Take the scratch of ``stream`` (a ``cuda_stream`` handle) out of the cache: a
-    graph captured on that stream keeps it, so that no later call on the stream (torch
-    hands streams out from a pool) can regrow or share it."""
+    """Take the scratch of ``stream`` (a ``cuda_stream`` handle) out of the cache."""
     return _scratch.pop((dev.index, stream), None)
 
 
@@ -253,10 +186,14 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(name, entry, a, b, va, vb, bf16):
-    """One launch of a kernel's C entry point on (Na, D) x (Nb, D). A D that is not a
-    multiple of 16 bytes is padded with zero columns here, which leaves every product
-    as it was."""
+def _launch(kernel, label, a, b, va, vb, bf16):
+    """One launch of the C entry point ``vo_top2_mutual_<kernel>`` on (Na, D) x (Nb, D),
+    bf16 or fp32 operands as ``bf16`` says. A D that is not a multiple of 16 bytes is
+    padded with zero columns here, which leaves every product as it was."""
+    if a.dtype != b.dtype or a.dtype != (torch.bfloat16 if bf16 else torch.float32):
+        raise TypeError(f"the {label} kernel takes {'bf16' if bf16 else 'fp32'} operands, "
+                        f"got {a.dtype}, {b.dtype}")
+    entry = kernels.entry(f"vo_top2_mutual_{kernel}", _ARGTYPES)
     na, nb, d = _check_operands(a, b, va, vb)
     dev = a.device
     g = match_grid(na, nb, d, bf16, _sms(dev))
@@ -275,66 +212,21 @@ def _launch(name, entry, a, b, va, vb, bf16):
             stream)
     if err != 0:
         _scratch.pop((dev.index, stream), None)   # a failed launch may leave it dirty
-        raise RuntimeError(f"{name} match kernel launch failed: error {err}")
+        raise RuntimeError(f"{label} match kernel launch failed: error {err}")
+    kernels.count(kernel)
     return nn12, top2, nn21
 
 
-# The launches recorded by CUDA graph captures since the last ``take_captured``, by
-# kernel ("gn": ``ops/pnp_gn.py::launch_gn``), and the function whose ``launches``
-# counts each kernel's.
-_captured = {"wgmma": 0, "simt": 0, "gn": 0}
-_counters: dict = {}
-
-
-def _count(kernel: str, fn, n: int = 1) -> None:
-    """``n`` launches of ``kernel``: on ``fn.launches``, or on the capture's tally when
-    the current stream is capturing a CUDA graph."""
-    _counters[kernel] = fn
-    if torch.cuda.is_current_stream_capturing():
-        _captured[kernel] += n
-    else:
-        fn.launches += n
-
-
-def take_captured() -> dict:
-    """-> the launches captured since the last call, {"wgmma": n, "simt": n, "gn": n},
-    and start a new tally: call it before a capture and after it, to get what the graph
-    holds."""
-    out = dict(_captured)
-    _captured.update(dict.fromkeys(_captured, 0))
-    return out
-
-
-def count_replay(tally: dict) -> None:
-    """Count one replay of a graph that captured ``tally`` (``take_captured``)."""
-    for kernel, n in tally.items():
-        if n:
-            _counters[kernel].launches += n
-
-
+@kernels.counted("simt")
 def launch_simt(a, b, va, vb):
     """The CUDA-core kernel on fp32 (Na, D) x (Nb, D): one launch."""
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"the SIMT kernel takes fp32 operands, got {a.dtype}, {b.dtype}")
-    out = _launch("SIMT", _library().vo_top2_mutual_simt, a, b, va, vb, False)
-    _count("simt", launch_simt)
-    return out
+    return _launch("simt", "SIMT", a, b, va, vb, False)
 
 
-launch_simt.launches = 0
-
-
+@kernels.counted("wgmma")
 def launch_wgmma(a, b, va, vb):
     """The tensor-core kernel on bf16 (Na, D) x (Nb, D): one launch."""
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"the wgmma kernel takes bf16 operands, got {a.dtype}, {b.dtype}")
-    out = _launch("wgmma", _library().vo_top2_mutual_wgmma, a, b, va, vb, True)
-    _count("wgmma", launch_wgmma)
-    return out
-
-
-launch_wgmma.launches = 0
-_counters.update(wgmma=launch_wgmma, simt=launch_simt)
+    return _launch("wgmma", "wgmma", a, b, va, vb, True)
 
 
 def top2_mutual(desc_a, desc_b, valid_a=None, valid_b=None, bf16: bool = False):
@@ -361,15 +253,8 @@ def ratio_mutual_nn_match_fused(desc_a, desc_b, valid_a=None, valid_b=None,
     column is invalid).
     """
     nn12, top2_sim, nn21 = top2_mutual(desc_a, desc_b, valid_a, valid_b, bf16=bf16)
-    dists = _unit_dist(top2_sim)
-    ratios = dists[:, 0] / (dists[:, 1] + 1e-8)
-    ids = torch.arange(nn12.shape[0], dtype=nn12.dtype, device=nn12.device)
-    mask = (nn21[nn12.long()] == ids) & (ratios <= ratio)
-    if valid_a is not None:
-        mask = mask & valid_a
-    mask = mask & (top2_sim[:, 0] > _NEG * 0.5)
-    return MatchResult(idx=nn12.long(), mask=mask,
-                       sim=torch.where(mask, top2_sim[:, 0], 0.0))
+    mask = _mutual_ratio_mask(nn12, top2_sim, nn21, ratio, valid_a)
+    return _result(nn12, top2_sim, mask & (top2_sim[:, 0] > _NEG * 0.5))
 
 
 def ratio_match_fused(desc_a, desc_b, valid_a=None, valid_b=None, ratio: float = 0.85,
@@ -378,15 +263,4 @@ def ratio_match_fused(desc_a, desc_b, valid_a=None, valid_b=None, ratio: float =
     if bf16 is None:
         bf16 = binary_dim is not None
     nn12, top2_sim, _ = top2_mutual(desc_a, desc_b, valid_a, valid_b, bf16=bf16)
-    if binary_dim is not None:
-        d1 = (binary_dim - top2_sim[:, 0]) * 0.5
-        d2 = (binary_dim - top2_sim[:, 1]) * 0.5
-    else:
-        d1 = _unit_dist(top2_sim[:, 0])
-        d2 = _unit_dist(top2_sim[:, 1])
-    mask = d1 < ratio * d2
-    if valid_a is not None:
-        mask = mask & valid_a
-    mask = mask & (top2_sim[:, 0] > _NEG * 0.5)
-    return MatchResult(idx=nn12.long(), mask=mask,
-                       sim=torch.where(mask, top2_sim[:, 0], 0.0))
+    return _result(nn12, top2_sim, _ratio_mask(top2_sim, ratio, binary_dim, valid_a))

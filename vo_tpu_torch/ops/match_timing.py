@@ -23,15 +23,18 @@ file with that checkout first on ``PYTHONPATH``.
 
 from __future__ import annotations
 
+import glob
 import os
-import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from vo_tpu_torch.device import card_name
-from vo_tpu_torch.ops import match
+from vo_tpu_torch.ops import kernels, match
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 
 def eager_ms(fn, n: int, per: int = 10) -> float:
@@ -161,45 +164,38 @@ def ablations_simt(src: str) -> dict[str, str]:
     }
 
 
-def _build_all(sources: dict[str, str], out_dir: str, other: str) -> dict[str, str]:
-    """nvcc each source (with ``other``, the other kernel's file, for the library's
+def _build_all(sources: dict[str, str], other: str) -> dict[str, str]:
+    """Build each source (with ``other``, the other kernel's file, for the library's
     second entry point) into its own library, all at once; name -> library path."""
-    csrc = os.path.join(os.path.dirname(__file__), "csrc")
+    out_dir = os.path.join(kernels.BUILD_DIR, "ablation")
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for i, (name, text) in enumerate(sources.items()):
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+    def build(i: int, text: str) -> str:
         cu = os.path.join(out_dir, f"ablation_{i}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        lib = cu[:-3] + ".so"
-        cmd = [match._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", csrc, "-o", lib, cu,
-               os.path.join(csrc, other)]
-        procs[name] = (lib, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        err = proc.communicate()[1]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name!r}:\n{err}")
-        libs[name] = lib
-    return libs
+        files = [cu, os.path.join(_CSRC, other)]
+        return kernels.compile_library(f"ablation_{i}", files + headers, lambda out: [
+            kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", _CSRC, "-o", out, *files])[0]
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(zip(sources, pool.map(build, range(len(sources)), sources.values())))
 
 
 def _ablate(label: str, kernel_file: str, other: str, cuts, call) -> None:
     """Times the whole kernel and each cut copy of ``kernel_file`` in turns."""
-    with open(os.path.join(os.path.dirname(__file__), "csrc", kernel_file)) as f:
+    with open(os.path.join(_CSRC, kernel_file)) as f:
         src = f.read()
-    libs = _build_all({"whole kernel": src, **cuts(src)},
-                      os.path.join(match._BUILD_DIR, "ablation"), other)
-    bound = match._lib
+    libs = _build_all({"whole kernel": src, **cuts(src)}, other)
     times: dict[str, list[float]] = {}
     try:
         for name in [*libs, *reversed(libs)]:        # in turns: whole, cuts, cuts, whole
-            match._lib = match.load_library(libs[name])
-            match._scratch.clear()                   # a cut copy leaves it dirty
-            times.setdefault(name, []).append(graph_ms(call, 30))
+            with kernels.library_at(libs[name]):
+                match._scratch.clear()               # a cut copy leaves it dirty
+                times.setdefault(name, []).append(graph_ms(call, 30))
     finally:
-        match._lib = bound
         match._scratch.clear()
     whole = float(np.mean(times["whole kernel"]))
     card = card_name(torch.device("cuda"))

@@ -5,12 +5,11 @@ Gauss-Newton solve over SE(3) in one launch on the current stream: one thread bl
 carries the solve from the start pose to the final one. The plain version is
 ``estimation/pnp.py::_gn_refine_plain``, which ``_gn_refine`` takes for CPU tensors;
 for CUDA tensors it launches this kernel or raises. The kernel is built with the match
-kernels, into one library (``match.build_match_kernel``).
+kernels, into one library (``kernels.build_kernels``).
 
 ``launch_gn.launches`` counts kernel launches like ``match.launch_wgmma.launches``: a
-launch recorded into a CUDA graph goes to the capture's tally (``match.take_captured``)
-and each replay of the graph counts it (``match.count_replay``). A schedule of up to 64
-thresholds takes one launch.
+launch recorded into a CUDA graph is counted at each replay of the graph
+(``ops/kernels.py``). A schedule of up to 64 thresholds takes one launch.
 """
 
 from __future__ import annotations
@@ -19,7 +18,11 @@ import ctypes
 
 import torch
 
-from vo_tpu_torch.ops import match
+from vo_tpu_torch.ops import kernels
+
+# The kernel's C entry points: the solve, and the launches a schedule of n steps takes.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_GN_ARGTYPES = [_P, _P, _P, _P, _P, ctypes.POINTER(_F), _I, _F, _I, _P, _P]
 
 
 def _inputs(pose, X, x_px, valid, K):
@@ -38,6 +41,7 @@ def _inputs(pose, X, x_px, valid, K):
     return [t.contiguous() for t in (pose, X, x_px, valid, K)], n
 
 
+@kernels.counted("gn")
 def launch_gn(pose, X, x_px, valid, K, thresholds, min_depth: float):
     """The solve from ``pose`` (4, 4) over X (N, 3), x_px (N, 2), valid (N,), K (3, 3)
     with one iteration per entry of ``thresholds`` (px) -> the final (4, 4) pose; an
@@ -48,17 +52,15 @@ def launch_gn(pose, X, x_px, valid, K, thresholds, min_depth: float):
     steps = len(thresholds)
     if steps == 0:
         return pose
-    lib = match._library()
+    solve = kernels.entry("vo_pnp_gn", _GN_ARGTYPES)
+    launches = kernels.entry("vo_pnp_gn_launches", [_I])
     out = torch.empty((4, 4), dtype=torch.float32, device=X.device)
     thr = (ctypes.c_float * steps)(*thresholds)
     with torch.cuda.device(X.device):
-        err = lib.vo_pnp_gn(pose.data_ptr(), X.data_ptr(), x_px.data_ptr(), valid.data_ptr(),
-                            K.data_ptr(), thr, steps, min_depth, n, out.data_ptr(),
-                            torch.cuda.current_stream(X.device).cuda_stream)
+        err = solve(pose.data_ptr(), X.data_ptr(), x_px.data_ptr(), valid.data_ptr(),
+                    K.data_ptr(), thr, steps, min_depth, n, out.data_ptr(),
+                    torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"Gauss-Newton kernel launch failed: error {err}")
-    match._count("gn", launch_gn, lib.vo_pnp_gn_launches(steps))
+    kernels.count("gn", launches(steps))
     return out
-
-
-launch_gn.launches = 0

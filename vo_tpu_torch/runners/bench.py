@@ -310,9 +310,7 @@ def main(argv=None, device: str | None = None) -> int:
     from vo_tpu_torch.io.dataset import RGBDSequence
     from vo_tpu_torch.io.native import NativeRGBDSequence
     from vo_tpu_torch.models.r2d2_extractor import R2D2Extractor
-    from vo_tpu_torch.ops import match
 
-    match.launch_wgmma.launches = match.launch_simt.launches = 0
     (imgs, deps, gt), rimgs, (limgs, ldeps, lgt) = _sequences(args.dir, args.frames)
     n = imgs.shape[0]
     seq_dir = _sequence_dir(args.dir, imgs, deps)
