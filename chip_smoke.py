@@ -7,8 +7,8 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the kernels of ``vo_tpu_torch/ops/csrc`` (nvcc) and prints ptxas's
    registers and spills for each: the wgmma kernel (bf16 operands, ``match_wgmma.cu``),
-   the SIMT kernel (fp32 operands, ``match_kernel.cu``) and PnP's Gauss-Newton kernel
-   (``pnp_gn.cu``);
+   the SIMT kernel (fp32 operands, ``match_kernel.cu``), PnP's Gauss-Newton kernel
+   (``pnp_gn.cu``) and its hypothesis-bank kernel (``pnp_bank.cu``);
 3. kernels vs plain: each match kernel against ``top2_mutual_plain`` on the card:
    workload descriptors, tie-heavy cases, ragged and tiny shapes, widths that need
    padding, Nb > 16384, SIFT-like descriptors, a misaligned view, all-invalid columns,
@@ -18,14 +18,18 @@ Phases, each of which raises (non-zero exit, no result line) on any failure:
 4. main path: the port's ``run_offline_vo`` on the 160-frame 376 x 1232 synthetic
    RGB-D slalom (2048 keypoints, 512 hypotheses), which captures the engine step's CUDA
    graph (its seconds printed and kept as a phase of their own); asserts the trajectory
-   gate, one wgmma launch and two Gauss-Newton launches per tracked frame (a replay
-   counts the launches it captured), one ``top2_wgmma_kernel`` and two
-   ``pnp_gn_kernel`` in the device trace per replayed step of a 16-step chunk, and
-   identical poses from the plain matcher (first 32 frames);
+   gate, one wgmma launch, two Gauss-Newton launches and one bank call per tracked
+   frame (a replay counts the launches it captured), one ``top2_wgmma_kernel``, two
+   ``pnp_gn_kernel`` and one ``pnp_bank_kernel`` in the device trace per replayed step
+   of a 16-step chunk, and identical poses from the plain matcher (first 32 frames);
+   then the bank kernel against the plain bank frame by frame over the slalom (each
+   step run eagerly twice from the kernel's carry: the step flags equal, the poses
+   within the replay cell's limits, the largest ``n_inliers`` difference printed), and
+   the bank kernel and the plain bank timed over CUDA-graph replays at N = 2048;
 5. float-mode path: the engine with the ``ratio_mutual_nn`` matcher on the first 16
    frames' descriptors as fp32 unit vectors (+-1/16); asserts one SIMT launch per
-   tracked frame, one ``top2_simt_kernel`` in the device trace per replayed step, and
-   identical poses from the plain matcher;
+   tracked frame, one ``top2_simt_kernel`` (and PnP's kernels as in phase 4) in the
+   device trace per replayed step, and identical poses from the plain matcher;
 6. SIFT-config path: ``run_offline_vo`` on the same frames with the multi-scale DoG +
    oriented gradhist extractor and the ``ratio_float`` matcher (``bench.py:337-386``);
    asserts the gate, one SIMT launch per tracked frame and one ``top2_simt_kernel`` in
@@ -340,24 +344,28 @@ def _device_ops(fn) -> dict:
 def _traced_replays(name, engine, args, kernel) -> dict:
     """``engine.run_sequence(*args)`` on a signature already captured, under the
     profiler: every step must replay the step's graph, and the device trace must show
-    one execution of the match ``kernel`` per replay and none of the other, and two of
-    PnP's Gauss-Newton kernel. -> {"replays": n, kernel: executions, GN_KERNEL: ...}."""
+    one execution of the match ``kernel`` per replay and none of the other, two of
+    PnP's Gauss-Newton kernel and one of each of its bank's two kernels.
+    -> {"replays": n, kernel: executions, GN_KERNEL: ..., BANK_KERNEL: ..., BANK_PICK: ...}."""
     from vo_tpu_torch.engine.vo import step_counts
 
     before = dict(step_counts)
     ops = _device_ops(lambda: engine.run_sequence(*args))
     steps = {k: step_counts[k] - before[k] for k in ("graph_captures", "graph_replays",
                                                       "eager_steps")}
-    runs = {k: sum(c for op, (c, _) in ops.items() if k in op) for k in (*KERNELS, GN_KERNEL)}
+    runs = {k: sum(c for op, (c, _) in ops.items() if k in op)
+            for k in (*KERNELS, GN_KERNEL, BANK_KERNEL, BANK_PICK)}
     n = args[0].shape[0] - 1
     print(f"{name}, {n} steps under the profiler: {steps}; kernels in the device "
           f"trace {runs}")
     want = {k: n if k == kernel else 0 for k in KERNELS}
     want[GN_KERNEL] = 2 * n
+    want[BANK_KERNEL] = want[BANK_PICK] = n
     if steps != {"graph_captures": 0, "graph_replays": n, "eager_steps": 0} or runs != want:
         raise AssertionError(f"{name}: {steps}, trace {runs}; expected {n} replays and "
                              f"{want}")
-    return {"replays": n, kernel: runs[kernel], GN_KERNEL: runs[GN_KERNEL]}
+    return {"replays": n, kernel: runs[kernel], GN_KERNEL: runs[GN_KERNEL],
+            BANK_KERNEL: runs[BANK_KERNEL], BANK_PICK: runs[BANK_PICK]}
 
 
 def _device_profile(fn):
@@ -378,14 +386,14 @@ def _device_profile(fn):
 
 
 def _counts() -> dict:
-    """Every registered kernel's launches: {"wgmma": n, "simt": n, "gn": n}."""
-    from vo_tpu_torch.ops import kernels, match, pnp_gn  # noqa: F401 (they register)
+    """Every registered kernel's launches: {"wgmma": n, "simt": n, "gn": n, "bank": n}."""
+    from vo_tpu_torch.ops import kernels, match, pnp_bank, pnp_gn  # noqa: F401 (register)
 
     return {name: fn.launches for name, fn in kernels.counters().items()}
 
 
 def _reset_counts() -> None:
-    from vo_tpu_torch.ops import kernels, match, pnp_gn  # noqa: F401 (they register)
+    from vo_tpu_torch.ops import kernels, match, pnp_bank, pnp_gn  # noqa: F401 (register)
 
     for fn in kernels.counters().values():
         fn.launches = 0
@@ -396,8 +404,22 @@ def _matches(counts: dict) -> dict:
     return {k: counts[k] for k in ("wgmma", "simt")}
 
 
+def _pnp_matches(counts: dict) -> dict:
+    """``_matches`` on a path where each match is followed by PnP (an engine step or a
+    pair verification): one bank call and two Gauss-Newton solves per match launch, or
+    it raises."""
+    out = _matches(counts)
+    n = sum(out.values())
+    if counts["bank"] != n or counts["gn"] != 2 * n:
+        raise AssertionError(f"launches {counts}: expected one bank call and two "
+                             f"Gauss-Newton solves per match launch ({n})")
+    return out
+
+
 KERNELS = ("top2_wgmma_kernel", "top2_simt_kernel")
 GN_KERNEL = "pnp_gn_kernel"
+BANK_KERNEL = "pnp_bank_kernel"     # the bank's first launch
+BANK_PICK = "pnp_bank_pick"         # its second: the first maximum
 
 
 def _ptxas_lines(out: str) -> list[str]:
@@ -405,7 +427,8 @@ def _ptxas_lines(out: str) -> list[str]:
     lines, kernel = [], "?"
     for line in out.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in (*KERNELS, GN_KERNEL) if k in line), line.strip())
+            kernel = next((k for k in (*KERNELS, GN_KERNEL, BANK_KERNEL, BANK_PICK)
+                           if k in line), line.strip())
         elif "registers" in line or "spill" in line:
             lines.append(f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
     return lines
@@ -696,6 +719,138 @@ def _gn_entry(card, launched, errs, n_rep=50) -> dict:
     }
 
 
+# Floating-point operations of one bank call as the kernel does them (an FMA counts 2):
+# each hypothesis scores each point (the transform 18, the projection, residual and
+# tests 16); a Kabsch solve ~700 (centroids, covariance, svd3x3, the det flip); a DLT
+# solve of m points 312 m (A^T A over 2m rows) + ~3,900 (Cholesky ~650, 8 inverse
+# iterations ~330 each, conditioning and svd3x3 ~600).
+BANK_FLOPS_PER_POINT = 34
+
+
+def _bank_flops(n, n_hyp, m, n_kab) -> float:
+    return float(BANK_FLOPS_PER_POINT * n * n_hyp + 700 * n_kab
+                 + (312 * m + 3900) * (n_hyp - n_kab))
+
+
+def _bank_case(dev, n=2048, seed=8216):
+    """Phase 4's bank at the main path's size: ``_gn_case``'s "mixed" correspondences,
+    their current-frame points (2 cm noise, 15 % without depth) and a frame's key."""
+    import torch
+
+    from vo_tpu_torch import prng
+
+    rng = np.random.default_rng(seed)
+    pose0, X, x, valid = _gn_case(rng, n, "mixed")
+    Xc = X @ pose0[:3, :3].T + np.array([0.2, -0.05, 0.8]) + rng.normal(0.0, 0.02, X.shape)
+    vc = rng.uniform(size=n) > 0.15
+    f32 = (lambda a: torch.tensor(np.asarray(a, np.float32), device=dev))
+    return (prng.fold_in(prng.key(8214, device=dev), 7), f32(X), f32(x),
+            torch.from_numpy(valid).to(dev), torch.from_numpy(K).to(dev), f32(Xc),
+            torch.from_numpy(vc).to(dev))
+
+
+def _bank_timing(card, dev, n_rep=50) -> dict:
+    """Phase 4: one bank call at N = 2048 with 512 hypotheses, held against the plain
+    bank bit for bit on the same CUDA tensors (every hypothesis against
+    ``_hypotheses``, every count against the plain inlier rule on those poses, the pick
+    against ``_bank_plain``; NaN where NaN), then kernel and plain timed over CUDA-graph
+    replays (L2 warm) and eagerly."""
+    import torch
+
+    from vo_tpu_torch.estimation.pnp import (PnPConfig, _bank, _bank_plain, _hypotheses,
+                                             _reproject_residuals)
+    from vo_tpu_torch.ops.match_timing import eager_ms, graph_ms
+    from vo_tpu_torch.ops.pnp_bank import launch_bank
+
+    cfg = PnPConfig(n_hypotheses=512)
+    args = _bank_case(dev)
+    key, X, x, valid, Kd, Xc, vc = args
+    n, n_hyp = X.shape[0], cfg.n_hypotheses
+    bank = launch_bank(key, X, x, valid, Kd, n_hyp, cfg.sample_size, cfg.reproj_threshold,
+                       cfg.min_depth, Xc, vc)
+    plain_poses = _hypotheses(key, X, x, valid, Kd, cfg, Xc, vc)
+    res, z = _reproject_residuals(plain_poses, X, x, Kd)
+    rule = ((res < cfg.reproj_threshold) & (z > cfg.min_depth) & valid).sum(-1)
+    same = (lambda a, b: (a == b) | (torch.isnan(a) & torch.isnan(b)))
+    gap = {"poses_off": int((~same(bank.poses, plain_poses).flatten(1).all(1)).sum()),
+           "counts_off": int((bank.counts.long() != rule).sum()),
+           "pick_equal": all(a.shape == b.shape and a.dtype == b.dtype
+                             and bool(same(a, b).all())
+                             for a, b in zip(bank[:3], _bank_plain(*args[:5], cfg,
+                                                                   *args[5:])))}
+    print(f"pnp_bank kernel vs plain bank at N = {n}, {n_hyp} hypotheses (bit for bit): "
+          f"{gap}")
+    if gap != {"poses_off": 0, "counts_off": 0, "pick_equal": True}:
+        raise AssertionError(f"the bank kernel differs from the plain bank: {gap}")
+    fns = {"ms": lambda: _bank(*args[:5], cfg, *args[5:]),
+           "plain_ms": lambda: _bank_plain(*args[:5], cfg, *args[5:])}
+    tm = {k: graph_ms(fn, n_rep) for k, fn in fns.items()}
+    eager = {k: eager_ms(fn, n_rep) for k, fn in fns.items()}
+    flops = _bank_flops(n, n_hyp, cfg.sample_size, 3 * n_hyp // 4)
+    nbytes = n * (12 + 8 + 1 + 12 + 1) + 16 + 36 + n_hyp * (16 + cfg.sample_size + 1) * 4 + n
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    print(f"pnp_bank kernel [{card}] N = {n}, {n_hyp} hypotheses: kernel {tm['ms']:.4f} ms, "
+          f"plain {tm['plain_ms']:.4f} ms, bound {bound_ms * 1e3:.3f} us ({flops / 1e6:.2f} "
+          f"MFLOP at 67 TFLOP/s fp32; {nbytes / 1024:.1f} KiB at 3.35 TB/s), "
+          f"{bound_ms / tm['ms'] * 100:.2f} % of the bound (CUDA-graph replays); eager "
+          f"back-to-back: kernel {eager['ms']:.4f} ms, plain {eager['plain_ms']:.4f} ms")
+    return {"ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "n": n,
+            "against_plain": gap}
+
+
+def _bank_against_plain(name, cfg, feats, kp3d, Kd) -> dict:
+    """Phase 4: the engine's steps over a drive, eagerly from the kernel's carry, each
+    frame stepped twice from the same carry: with the bank kernel and with the plain
+    bank (``_bank_plain`` on the same CUDA tensors). The step flags (accepted, promoted)
+    and ``n_inliers`` must be equal and the poses identical on every frame, since the
+    kernel gives the plain bank's bits; prints the largest gaps. -> the numbers."""
+    import torch
+
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.engine.vo import VOEngine
+    from vo_tpu_torch.estimation import pnp
+
+    dev = Kd.device
+    engine = VOEngine(cfg, device=dev)
+    kp, desc, valid = feats.kp, feats.desc, feats.valid
+    state = engine.initial_state(kp[0], desc[0], valid[0], kp3d[0])
+    kp3d_valid = engine._depth_valid(valid, kp3d)
+    n = kp.shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    keys = prng.fold_in(prng.key(cfg.seed, device=dev), ids)
+    kernel_bank, steps = pnp._bank, []
+    for i in range(1, n):
+        args = (kp[i], desc[i], valid[i], kp3d[i], kp3d_valid[i], ids[i], keys[i])
+        new_state, pose_k, diag_k = engine._step(Kd, state, *args)
+        pnp._bank = pnp._bank_plain
+        try:
+            _, pose_p, diag_p = engine._step(Kd, state, *args)
+        finally:
+            pnp._bank = kernel_bank
+        steps.append((pose_k, pose_p, diag_k, diag_p))
+        state = new_state
+    pk, pp = (torch.stack([s[j] for s in steps]).double().cpu().numpy() for j in (0, 1))
+    dk, dp = ([torch.stack([getattr(s[j], f) for s in steps]).cpu().numpy()
+               for f in ("accepted", "promoted_keyframe", "n_inliers")] for j in (2, 3))
+    gap_m = np.abs(pk[:, :3, 3] - pp[:, :3, 3]).max(1)
+    gap_rad = np.linalg.norm(pk[:, :3, :3] - pp[:, :3, :3], axis=(1, 2)) / np.sqrt(2.0)
+    flags_same = bool((dk[0] == dp[0]).all() and (dk[1] == dp[1]).all())
+    d_inl = np.abs(dk[2].astype(np.int64) - dp[2].astype(np.int64))
+    out = {"frames": n - 1, "flags_equal": flags_same,
+           "poses_identical": int((pk == pp).all((1, 2)).sum()),
+           "max_gap_m": float(gap_m.max()), "max_gap_rad": float(gap_rad.max()),
+           "max_n_inliers_diff": int(d_inl.max()),
+           "frames_n_inliers_differ": int((d_inl > 0).sum())}
+    print(f"{name}, bank kernel vs plain bank frame by frame ({n - 1} steps from the "
+          f"kernel's carry): {out}")
+    if (not flags_same or out["poses_identical"] != n - 1
+            or out["max_n_inliers_diff"] != 0):
+        raise AssertionError(f"{name}: the bank kernel moves the steps: {out}")
+    return out
+
+
 def _gate(name, poses, accepted, gt, launches=None) -> bool:
     """The trajectory gate of ``bench.py``; prints the line and returns pass/fail."""
     from vo_tpu_torch.evalkit import KittiOdomEvaluator
@@ -812,7 +967,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         counts = _counts()
         if res.rc != 0 or res.loader != "native":
             raise AssertionError(f"CLI run: rc {res.rc}, loader {res.loader!r}")
-        if _matches(counts) != {"wgmma": F - 1, "simt": 0}:
+        if _pnp_matches(counts) != {"wgmma": F - 1, "simt": 0}:
             raise AssertionError(f"CLI run launches {counts}, expected {F - 1} wgmma, 0 simt")
         written = np.load(orb_npy)
         if written.shape != (F, 4, 4) or not np.array_equal(written, res.poses):
@@ -852,7 +1007,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         print(f"resume from frame {next_frame} to {2 * F_PART}: launches {counts_r}, largest "
               f"pose difference to the uninterrupted run {diff_r:.3e}, identical = "
               f"{diff_r == 0.0}")
-        if (_matches(counts_r) != {"wgmma": F_PART, "simt": 0}
+        if (_pnp_matches(counts_r) != {"wgmma": F_PART, "simt": 0}
                 or resumed.poses.shape[0] != 2 * F_PART or diff_r > 1e-5):
             raise AssertionError("the resumed run does not reproduce the uninterrupted one")
 
@@ -864,7 +1019,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         counts_s = _counts()
         print(f"CLI, SIFT config, {m} frames: launches {counts_s}, accept "
               f"{float(np.mean(sres.diag.accepted)):.3f}")
-        if (_matches(counts_s) != {"wgmma": 0, "simt": m - 1}
+        if (_pnp_matches(counts_s) != {"wgmma": 0, "simt": m - 1}
                 or sres.poses.shape != (m, 4, 4) or not np.isfinite(sres.poses).all()):
             raise AssertionError("the SIFT config through the CLI failed")
 
@@ -877,7 +1032,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         print(f"CLI, SURF config, {m} frames: launches {surf_counts}, accept "
               f"{float(np.mean(ures.diag.accepted)):.3f}, final drift "
               f"{float(np.linalg.norm(ures.poses[-1, :3, 3] - gt[m - 1, :3, 3])):.3f} m")
-        if (_matches(surf_counts) != {"wgmma": 0, "simt": m - 1}
+        if (_pnp_matches(surf_counts) != {"wgmma": 0, "simt": m - 1}
                 or ures.poses.shape != (m, 4, 4) or not np.isfinite(ures.poses).all()
                 or np.mean(ures.diag.accepted) <= 0.8):
             raise AssertionError("the SURF config through the CLI failed")
@@ -892,7 +1047,7 @@ def _streaming_phase(card, imgs, deps, gt) -> int:
         diff_o = float(np.abs(on_poses - ref_poses[:n_on]).max())
         print(f"OnlineVO, {n_on} frames: launches {counts_o}, largest pose difference to "
               f"run_offline_vo {diff_o:.3e}")
-        if _matches(counts_o) != {"wgmma": n_on - 1, "simt": 0} or diff_o > 1e-4:
+        if _pnp_matches(counts_o) != {"wgmma": n_on - 1, "simt": 0} or diff_o > 1e-4:
             raise AssertionError("OnlineVO disagrees with run_offline_vo")
 
         sub_s["checks"] = time.perf_counter() - t_checks
@@ -1075,7 +1230,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
     counts = _counts()
     sposes, accepted = sposes.cpu().numpy(), sdiag.accepted.cpu().numpy()
     launches["stereo"] = counts["wgmma"]
-    if _matches(counts) != {"wgmma": n - 1, "simt": 0}:
+    if _pnp_matches(counts) != {"wgmma": n - 1, "simt": 0}:
         raise AssertionError(f"stereo path launches {counts}, expected {n - 1} wgmma")
     z, kp = skp3d[..., 2].cpu().numpy(), sfeats.kp.cpu().numpy()
     valid = sfeats.valid.cpu().numpy()
@@ -1129,7 +1284,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
           f"{[int(i) + 1 for i in np.nonzero(~adiag.accepted)[0]]}), keyframe promotions "
           f"{int(adiag.promoted_keyframe.sum())}, accept {accept:.4f}; run_offline_vo "
           f"{a_ms:.3f} ms/frame")
-    if _matches(counts) != {"wgmma": n - 1, "simt": 0}:
+    if _pnp_matches(counts) != {"wgmma": n - 1, "simt": 0}:
         raise AssertionError(f"adversarial path launches {counts}, expected {n - 1} wgmma")
     if not (_gate("adversarial path", aposes, adiag.accepted, gt, counts["wgmma"])
             and 0.8 < accept < 1.0):
@@ -1154,7 +1309,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
         extraction_batch=EXTRACT_BATCH, return_features=True, device=dev)
     counts = _counts()
     launches["surf"] = counts["simt"]
-    if _matches(counts) != {"wgmma": 0, "simt": m - 1}:
+    if _pnp_matches(counts) != {"wgmma": 0, "simt": m - 1}:
         raise AssertionError(f"SURF path launches {counts}, expected {m - 1} simt, 0 wgmma")
     if ufeats.desc.shape[1:] != (2048, 64) or ufeats.desc.dtype != torch.bfloat16:
         raise AssertionError(f"SURF descriptors {tuple(ufeats.desc.shape)} {ufeats.desc.dtype}")
@@ -1185,7 +1340,7 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
         extraction_batch=EXTRACT_BATCH, return_features=True, device=dev)
     counts = _counts()
     launches["oriented"] = counts["wgmma"]
-    if _matches(counts) != {"wgmma": m - 1, "simt": 0}:
+    if _pnp_matches(counts) != {"wgmma": m - 1, "simt": 0}:
         raise AssertionError(f"oriented path launches {counts}, expected {m - 1} wgmma")
     if not _gate(f"oriented BRIEF path, {m} frames", oposes, odiag.accepted, gt[:m],
                  counts["wgmma"]):
@@ -1284,7 +1439,7 @@ def _refinement_phase(card, imgs, deps, cfg, extractor, errs) -> dict:
         imgs, deps, K, vo_config=cfg, extractor=extractor, extraction_batch=EXTRACT_BATCH,
         return_features=True, device="cuda")
     counts = _counts()
-    if _matches(counts) != {"wgmma": LF - 1, "simt": 0}:
+    if _pnp_matches(counts) != {"wgmma": LF - 1, "simt": 0}:
         raise AssertionError(f"loop odometry launches {counts}, expected {LF - 1} wgmma")
     _gate("loop workload odometry", poses, diag.accepted, gt, counts["wgmma"])
     sub_s["odometry"] = time.perf_counter() - t0
@@ -1314,7 +1469,7 @@ def _refinement_phase(card, imgs, deps, cfg, extractor, errs) -> dict:
           f"verification); breakdown match {timing.get('match_s', 0.0):.3f} s, BA "
           f"{timing.get('ba_s', 0.0):.3f} s, host {timing.get('host_s', 0.0):.3f} s; warm "
           f"run's closed poses within {float(np.abs(closed_w - closed).max()):.2e}")
-    if _matches(counts) != {"wgmma": n_verified, "simt": 0} or n_verified == 0:
+    if _pnp_matches(counts) != {"wgmma": n_verified, "simt": 0} or n_verified == 0:
         raise AssertionError(f"refine_full launches {counts} for {n_verified} verifications")
     # Fixed-order block sums in BA and the pose graph: the warm run repeats the cold.
     if not np.array_equal(closed_w, closed):
@@ -1388,7 +1543,7 @@ def _refinement_phase(card, imgs, deps, cfg, extractor, errs) -> dict:
     print(f"refine_full drifted: drift {dn:.4f} -> {dc:.4f} m, ATE {an:.4f} -> {ac:.4f} m")
     if not (info_n["ran_ba"] and kept and all(w["mean_reproj"] < 2.0 for w in kept)
             and dc < dn and ac < an
-            and _matches(counts_n) == {"wgmma": refine.verify_row_pairs.pairs, "simt": 0}):
+            and _pnp_matches(counts_n) == {"wgmma": refine.verify_row_pairs.pairs, "simt": 0}):
         raise AssertionError("the BA branch failed")
     sub_s["ba_branch"] = time.perf_counter() - t0
 
@@ -1472,7 +1627,7 @@ def _refine_cli(card, imgs, deps, gt) -> int:
               f"{len(res.refine['keyframes'])} keyframes, branch "
               f"{'BA' if res.refine['ran_ba'] else 'no BA'}, {n_verified} verifications, "
               f"launches {counts}")
-        if res.rc != 0 or _matches(counts) != {"wgmma": n - 1 + n_verified, "simt": 0}:
+        if res.rc != 0 or _pnp_matches(counts) != {"wgmma": n - 1 + n_verified, "simt": 0}:
             raise AssertionError(f"CLI --refine: rc {res.rc}, launches {counts}")
         saved = np.load(odo + ".npy")
         if not (np.array_equal(saved, res.refine["refined_odometry"])
@@ -1646,7 +1801,7 @@ def _longrun_phase(card, seq_dir) -> dict:
     print(f"long run report: {json.dumps(report)}")
     warm = 3 * 16 - 1                         # the runner's warm-up: 3 batches of 16
     expected = {"wgmma": warm + F_LONG - 1 + n_verified, "simt": 0}
-    ok = (rc == 0 and _matches(counts) == expected
+    ok = (rc == 0 and _pnp_matches(counts) == expected
           and report["seg_trans_err_pct"] < 1.5
           and report["seg_rot_err_deg_100m"] < 2.0 and report["accept_rate"] > 0.8
           and report["checkpoint_written"] and report["refined_finite"]
@@ -1771,7 +1926,7 @@ def _r2d2_phase(card, imgs, deps, gt, errs, dev="cuda") -> dict:
     poses, diag, engine_ms = _engine_run(VOEngine(cfg, device=dev), feats3, kp3d, Kd)
     counts = _counts()
     poses_np = poses.cpu().numpy()
-    if _matches(counts) != {"wgmma": 0, "simt": m - 1} or not np.isfinite(poses_np).all():
+    if _pnp_matches(counts) != {"wgmma": 0, "simt": m - 1} or not np.isfinite(poses_np).all():
         raise AssertionError(f"R2D2 path launches {counts} (expected {m - 1} simt, 0 "
                              f"wgmma), poses finite {np.isfinite(poses_np).all()}")
     res = KittiOdomEvaluator().evaluate(gt[:m], poses_np)
@@ -2392,7 +2547,7 @@ def _smoke(second, conn, work) -> None:
     ptxas_lines = _ptxas_lines(ptxas)
     for line in ptxas_lines:
         print(f"  ptxas: {line}")
-    for kernel in (*KERNELS, GN_KERNEL):
+    for kernel in (*KERNELS, GN_KERNEL, BANK_KERNEL, BANK_PICK):
         if build_s > 0 and not any(x.startswith(kernel) for x in ptxas_lines):
             raise AssertionError(f"ptxas printed nothing for {kernel}")
     second.start()
@@ -2446,6 +2601,7 @@ def _smoke(second, conn, work) -> None:
     counts = _counts()
     launches = counts["wgmma"]
     gn_launches = counts["gn"]
+    bank_calls = counts["bank"]
     phase_s["main_path"] = time.perf_counter() - t0
     steps = {k: step_counts[k] - steps0[k] for k in step_counts}
     phase_s["main_path_graph_capture"] = steps["capture_s"]
@@ -2458,6 +2614,9 @@ def _smoke(second, conn, work) -> None:
     if gn_launches != 2 * (F - 1):
         raise AssertionError(f"main path Gauss-Newton launches {gn_launches}, expected "
                              f"{2 * (F - 1)}")
+    print(f"main path bank kernel calls {bank_calls}")
+    if bank_calls != F - 1:
+        raise AssertionError(f"main path bank calls {bank_calls}, expected {F - 1}")
     m = F_TIMED // 2 + 1
     traced = {"main path": _traced_replays(
         "main path", VOEngine(cfg, device=dev),
@@ -2475,6 +2634,12 @@ def _smoke(second, conn, work) -> None:
                              dev)
     phase_s["plain_engine_run"] = time.perf_counter() - t0
 
+    # The bank kernel against the plain bank, step by step over the slalom, and timed.
+    t0 = time.perf_counter()
+    bank_frames = _bank_against_plain("main path", cfg, feats, kp3d, Kd)
+    bank_timing = _bank_timing(card, dev)
+    phase_s["bank_vs_plain"] = time.perf_counter() - t0
+
     # Phase 5: the float-mode path (the matchers of float descriptors), counted: the
     # binary descriptors as fp32 unit vectors, whose products and sums are exact.
     t0 = time.perf_counter()
@@ -2485,8 +2650,10 @@ def _smoke(second, conn, work) -> None:
     poses_f, diag_f = VOEngine(VOConfig(**fcfg), device=dev).run_sequence(*fargs)
     torch.cuda.synchronize()
     counts_f = _counts()
-    if _matches(counts_f) != {"wgmma": 0, "simt": F_FLOAT - 1}:
-        raise AssertionError(f"float path launches {counts_f}, expected {F_FLOAT - 1} simt")
+    if (_matches(counts_f) != {"wgmma": 0, "simt": F_FLOAT - 1}
+            or counts_f["bank"] != F_FLOAT - 1):
+        raise AssertionError(f"float path launches {counts_f}, expected {F_FLOAT - 1} simt "
+                             f"and bank")
     traced["float-mode path"] = _traced_replays(
         "float-mode path", VOEngine(VOConfig(**fcfg), device=dev), fargs, "top2_simt_kernel")
     poses_fp, _ = VOEngine(VOConfig(**fcfg, use_match_kernel=False),
@@ -2512,8 +2679,9 @@ def _smoke(second, conn, work) -> None:
         imgs, deps, K, vo_config=VOConfig(**sift_cfg), extractor=sift,
         extraction_batch=EXTRACT_BATCH, return_features=True, device="cuda")
     counts_s = _counts()
-    if _matches(counts_s) != {"wgmma": 0, "simt": F - 1}:
-        raise AssertionError(f"SIFT path launches {counts_s}, expected {F - 1} simt, 0 wgmma")
+    if _matches(counts_s) != {"wgmma": 0, "simt": F - 1} or counts_s["bank"] != F - 1:
+        raise AssertionError(f"SIFT path launches {counts_s}, expected {F - 1} simt and "
+                             f"bank, 0 wgmma")
     m = F_TIMED // 2 + 1
     traced["SIFT path"] = _traced_replays(
         "SIFT path", VOEngine(VOConfig(**sift_cfg), device=dev),
@@ -2671,6 +2839,25 @@ def _smoke(second, conn, work) -> None:
     entries[-1]["traced_replays"] = {
         f"{path} ({t['replays']} steps)": {"replays": t["replays"], GN_KERNEL: t[GN_KERNEL]}
         for path, t in traced.items()}
+    entries.append({
+        "name": f"pnp_bank N={bank_timing['n']} x 512 hypotheses fp32",
+        "route": "cuda",
+        "source": "vo_tpu_torch/ops/csrc/pnp_bank.cu",
+        "replaces": "none (vo_tpu/estimation/pnp.py::_hypotheses and its scoring, "
+                    "fused by XLA)",
+        "launches": bank_calls,
+        "launches_by_path": {"main path (run_offline_vo, 160 frames)": bank_calls,
+                             f"float-mode path (VOEngine, {F_FLOAT} frames)":
+                                 counts_f["bank"],
+                             "SIFT path (run_offline_vo, 160 frames)": counts_s["bank"]},
+        "frames_against_plain": bank_frames,
+        **{k: bank_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "against_plain")},
+        "library_ms": None,
+        "traced_replays": {f"{path} ({t['replays']} steps)":
+                           {"replays": t["replays"], BANK_KERNEL: t[BANK_KERNEL],
+                            BANK_PICK: t[BANK_PICK]}
+                           for path, t in traced.items()}})
 
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

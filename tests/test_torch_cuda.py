@@ -31,7 +31,11 @@ signature across engines (not per seed; per engine class) in one shared memory p
 replays and not the capture and the device trace showing one match kernel per replayed
 step, and no host sync either way. PnP's Gauss-Newton kernel against its plain version
 (poses, inliers and the sum w >= 4 gate, any N and schedule length), bit-identical in a
-graph, and its launches in the streaming entry's stats.
+graph, and its launches in the streaming entry's stats. PnP's hypothesis-bank kernel
+against ``_sample_indices`` (the draws, bit for bit) and the plain bank (each
+hypothesis, the counts, the pick), on edge cases (no valid point, 1 and 5 valid
+points, a DLT-only bank, 256 hypotheses, ragged N, a planar scene, sample sizes 8 and
+16), and captured in a graph.
 """
 
 import time
@@ -1113,7 +1117,156 @@ def test_streaming_stats_time_the_replays_and_count_the_solves(cuda_device, fres
         wall = time.perf_counter() - t0
         steps = stats["graph_replays"] + stats["eager_steps"]
         assert steps == 11 and stats["gn_kernel_solves"] == 2 * steps
+        assert stats["bank_kernel_calls"] == steps
         assert 0.0 < stats["engine_device_s"] < wall
+
+
+def _bank_problem(n, case, seed=11):
+    """A frame's bank on the cells' KITTI camera: keyframe points X, their pixels under a
+    known motion (0.5 px noise, 30 % gross outliers), a valid mask (10 % off), the
+    current frame's points (2 cm noise) and their mask (15 % off), and the threefry key.
+    ``case``: "mixed"; "dlt_only" (no current points); "no_valid"; "valid_<k>" (k valid
+    points); "planar" (every keyframe point on one plane: degenerate DLT sets)."""
+    from vo_tpu_torch import prng
+
+    rng = np.random.default_rng([seed, n])
+    K = np.array([[721.53, 0.0, 609.55], [0.0, 721.53, 172.85], [0.0, 0.0, 1.0]],
+                 np.float32)
+    X = np.stack([rng.uniform(-20, 20, n), rng.uniform(-3, 3, n), rng.uniform(4, 60, n)], 1)
+    if case == "planar":
+        X[:, 1] = 1.6
+    ang = 0.04
+    R = np.array([[np.cos(ang), 0.0, np.sin(ang)], [0.0, 1.0, 0.0],
+                  [-np.sin(ang), 0.0, np.cos(ang)]])
+    Y = X @ R.T + np.array([0.2, -0.05, 0.8])
+    x = (K[:2, :2] @ (Y[:, :2] / Y[:, 2:]).T + K[:2, 2:]).T + rng.normal(0.0, 0.5, (n, 2))
+    out = rng.uniform(size=n) < 0.3
+    x[out] += rng.uniform(-100, 100, (int(out.sum()), 2))
+    valid = rng.uniform(size=n) > 0.1
+    if case == "no_valid":
+        valid[:] = False
+    elif case.startswith("valid_"):
+        valid[:] = False
+        valid[rng.permutation(n)[:int(case.split("_")[1])]] = True
+    f32 = (lambda a: torch.tensor(a, dtype=torch.float32))
+    Yc, valid_cur = f32(Y + rng.normal(0.0, 0.02, Y.shape)), torch.from_numpy(
+        rng.uniform(size=n) > 0.15)
+    if case == "dlt_only":
+        Yc = valid_cur = None
+    return (prng.fold_in(prng.key(8214), int(seed)), f32(X), f32(x), torch.from_numpy(valid),
+            torch.from_numpy(K), Yc, valid_cur)
+
+
+def _bank_on(dev, n, case, n_hyp=512, m=6):
+    """The problem on ``dev`` and its PnPConfig."""
+    from vo_tpu_torch.estimation.pnp import PnPConfig
+
+    return ([None if t is None else t.to(dev) for t in _bank_problem(n, case)],
+            PnPConfig(n_hypotheses=n_hyp, sample_size=m))
+
+
+BANK_CASES = [(2048, "mixed", 512, 6), (2049, "mixed", 512, 6), (1000, "dlt_only", 512, 6),
+              (2048, "mixed", 256, 6), (37, "mixed", 512, 6), (2048, "no_valid", 512, 6),
+              (2048, "valid_1", 512, 6), (2048, "valid_5", 512, 6), (500, "planar", 512, 6),
+              (777, "mixed", 128, 16), (2048, "dlt_only", 256, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, case, n_hyp, m", BANK_CASES)
+def test_bank_kernel_draws_exactly_the_plain_sets(cuda_device, n, case, n_hyp, m):
+    """The kernel's minimal sets are ``_sample_indices``' bit for bit: the Kabsch bank
+    from split(key)[0] over valid & valid_cur, the DLT bank from split(key)[1] over
+    valid, or the DLT bank alone from the key; with no valid point every set is point
+    0. One call, two launches, one count."""
+    from vo_tpu_torch import prng
+    from vo_tpu_torch.estimation.pnp import _sample_indices
+    from vo_tpu_torch.ops.pnp_bank import launch_bank
+
+    (key, X, x, valid, K, Xc, vc), cfg = _bank_on(cuda_device, n, case, n_hyp, m)
+    before = launch_bank.launches
+    bank = launch_bank(key, X, x, valid, K, n_hyp, m, cfg.reproj_threshold, cfg.min_depth,
+                       Xc, vc)
+    torch.cuda.synchronize()
+    assert launch_bank.launches - before == 1
+    idx = bank.idx.long()
+    if Xc is None:
+        assert torch.equal(idx, _sample_indices(key, valid, n_hyp, m))
+        return
+    n_kab = 3 * n_hyp // 4
+    k1, k2 = prng.split(key)
+    assert torch.equal(idx[:n_kab, :3], _sample_indices(k1, valid & vc, n_kab, 3))
+    assert bool((idx[:n_kab, 3:] == -1).all())
+    assert torch.equal(idx[n_kab:], _sample_indices(k2, valid, n_hyp - n_kab, m))
+    if case == "no_valid":
+        assert int(idx.clamp(min=0).max()) == 0
+
+
+def _same(a, b) -> bool:
+    """Equal bit for bit, NaN where NaN."""
+    return a.shape == b.shape and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, case, n_hyp, m", BANK_CASES)
+def test_bank_kernel_matches_the_plain_bank(cuda_device, n, case, n_hyp, m):
+    """Every hypothesis against ``_hypotheses`` on the same CUDA tensors, the counts
+    against the plain inlier rule on those poses, and the pick against ``_bank_plain``.
+
+    The kernel repeats the plain version's operations with each rounding where
+    PyTorch's CUDA kernels put it (csrc/pnp_bank.cu), so the stated tolerance is none:
+    every pose is equal bit for bit (NaN where the plain version's is NaN, as for the
+    DLT sets of one repeated point), every count equals the rule's, and the pick is the
+    first maximum (``torch.argmax``) with its pose, its count as int64 and its mask."""
+    from vo_tpu_torch.estimation.pnp import (_bank, _bank_plain, _hypotheses,
+                                             _reproject_residuals)
+    from vo_tpu_torch.ops.pnp_bank import launch_bank
+
+    (key, X, x, valid, K, Xc, vc), cfg = _bank_on(cuda_device, n, case, n_hyp, m)
+    bank = launch_bank(key, X, x, valid, K, n_hyp, m, cfg.reproj_threshold, cfg.min_depth,
+                       Xc, vc)
+    plain = _hypotheses(key, X, x, valid, K, cfg, Xc, vc)
+    assert _same(bank.poses, plain)
+    res, z = _reproject_residuals(plain, X, x, K)
+    rule = (res < cfg.reproj_threshold) & (z > cfg.min_depth) & valid
+    assert torch.equal(bank.counts.long(), rule.sum(-1))
+    best = int(torch.argmax(bank.counts))
+    assert torch.equal(bank.pose, bank.poses[best]) and torch.equal(bank.inliers, rule[best])
+    assert bank.count.dtype == torch.int64 and int(bank.count) == int(bank.counts.max())
+    for a, b in zip(bank[:3], _bank_plain(key, X, x, valid, K, cfg, Xc, vc)):
+        assert _same(a, b) and a.dtype == b.dtype
+    if not bool(valid.any()):
+        assert int(bank.count) == 0 and best == 0
+    for a, b in zip(_bank(key, X, x, valid, K, cfg, Xc, vc), bank[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bank_kernel_in_a_graph_counts_one_call_per_replay(cuda_device):
+    """The bank captured into a CUDA graph: the capture's tally holds one call, each
+    replay counts one, and two replays and the eager call give the same bits."""
+    from vo_tpu_torch.estimation.pnp import _bank
+    from vo_tpu_torch.ops.pnp_bank import launch_bank
+
+    (key, X, x, valid, K, Xc, vc), cfg = _bank_on(cuda_device, 2048, "mixed")
+    eager = _bank(key, X, x, valid, K, cfg, Xc, vc)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    kernels.begin_capture(cuda_device, stream.cuda_stream)
+    before = launch_bank.launches
+    with torch.cuda.graph(graph, stream=stream):
+        out = _bank(key, X, x, valid, K, cfg, Xc, vc)
+    capture = kernels.end_capture(cuda_device, stream.cuda_stream)
+    assert capture.launches["bank"] == 1 and launch_bank.launches == before
+    reps = []
+    for _ in range(2):
+        graph.replay()
+        capture.replayed()
+        reps.append([t.clone() for t in out])
+    torch.cuda.synchronize()
+    assert launch_bank.launches - before == 2
+    for a, b, c in zip(reps[0], reps[1], eager):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.cuda

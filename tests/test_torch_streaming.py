@@ -205,8 +205,9 @@ def test_stream_stats(frames):
     imgs, _ = frames
     assert stats["chunks"] == 1 and stats["queue_wait_s"] >= 0.0
     assert stats["sync_wait_s"] == 0.0 and stats["engine_s"] > 0.0   # no device to wait on
-    # no graph to replay, and PnP's Gauss-Newton solves take the plain version
+    # no graph to replay, and PnP's bank and Gauss-Newton solves take the plain versions
     assert stats["engine_device_s"] == 0.0 and stats["gn_kernel_solves"] == 0
+    assert stats["bank_kernel_calls"] == 0
     # up: the images and 512 uint16 depths per frame; down: int16 pixels + packed rows
     assert stats["h2d_bytes"] == B * imgs[0].nbytes + B * 512 * 2
     assert stats["d2h_bytes"] == B * 512 * 2 * 2 + (B - 1) * 21 * 4

@@ -308,9 +308,10 @@ def run_offline_vo_streaming(
     the engine's steps replayed from its CUDA graph (``graph_replays``) and run eagerly
     (``eager_steps``: every step off CUDA, the step before a capture on it), the device
     seconds of those replays (``engine_device_s``: CUDA events around each, read after
-    the readback that follows it, so no sync of their own; 0 off CUDA) and PnP's
-    Gauss-Newton solves through its kernel (``gn_kernel_solves``); the engine counts
-    the steps and the solves (``VOEngine.counts``).
+    the readback that follows it, so no sync of their own; 0 off CUDA), PnP's
+    Gauss-Newton solves through its kernel (``gn_kernel_solves``) and its hypothesis
+    banks through the bank kernel (``bank_kernel_calls``); the engine counts the steps,
+    the solves and the banks (``VOEngine.counts``).
     """
     if retain not in ("all", "sparse"):
         raise ValueError(f"retain must be 'all' or 'sparse', got {retain!r}")

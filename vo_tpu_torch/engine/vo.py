@@ -42,6 +42,7 @@ from vo_tpu_torch.geometry.se3 import orthonormalize_pose, pose_inverse
 from vo_tpu_torch.matching.matchers import mutual_nn_match, ratio_match, ratio_mutual_nn_match
 from vo_tpu_torch.ops import kernels
 from vo_tpu_torch.ops.match import ratio_match_fused, ratio_mutual_nn_match_fused
+from vo_tpu_torch.ops.pnp_bank import launch_bank
 from vo_tpu_torch.ops.pnp_gn import launch_gn
 from vo_tpu_torch.utils.profiling import span
 
@@ -96,7 +97,8 @@ step_counts = {"graph_captures": 0, "graph_replays": 0, "eager_steps": 0,
 
 def _counts() -> dict:
     return {"graph_replays": step_counts["graph_replays"],
-            "eager_steps": step_counts["eager_steps"], "gn_kernel_solves": launch_gn.launches}
+            "eager_steps": step_counts["eager_steps"],
+            "gn_kernel_solves": launch_gn.launches, "bank_kernel_calls": launch_bank.launches}
 
 
 # The captured steps by input signature, for the life of the process: the streaming
@@ -229,8 +231,9 @@ class VOEngine:
 
     def counts(self) -> dict:
         """Since the engine was made, in the process: the steps replayed from a CUDA
-        graph (``graph_replays``) and run eagerly (``eager_steps``), and PnP's
-        Gauss-Newton solves through its kernel (``gn_kernel_solves``)."""
+        graph (``graph_replays``) and run eagerly (``eager_steps``), PnP's Gauss-Newton
+        solves through its kernel (``gn_kernel_solves``) and its hypothesis banks through
+        the bank kernel (``bank_kernel_calls``)."""
         return {k: v - self._counts0[k] for k, v in _counts().items()}
 
     def _match(self, desc_a, desc_b, valid_a, valid_b):

@@ -6,9 +6,10 @@ frame has depth) and a 6-point DLT bank; all hypotheses score all N corresponden
 the best seeds a fixed-iteration reweighted Gauss-Newton polish. Shapes never depend
 on the data and nothing here reads a value back to the host.
 
-The Gauss-Newton solve (``_gn_refine``) runs as one hand-written CUDA kernel on CUDA
-tensors (``ops/pnp_gn.py``); its plain version, ``_gn_refine_plain``, serves CPU
-tensors.
+The bank and its scoring (``_bank``) and the Gauss-Newton solve (``_gn_refine``) each
+run as a hand-written CUDA kernel on CUDA tensors (``ops/pnp_bank.py``,
+``ops/pnp_gn.py``); their plain versions, ``_bank_plain`` and ``_gn_refine_plain``,
+serve CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from vo_tpu_torch import prng
 from vo_tpu_torch.estimation.procrustes import kabsch
 from vo_tpu_torch.geometry.se3 import pose_from_rt, se3_exp
 from vo_tpu_torch.geometry.so3 import hat
+from vo_tpu_torch.ops.pnp_bank import launch_bank
 from vo_tpu_torch.ops.pnp_gn import launch_gn
 from vo_tpu_torch.ops.smalllinalg import det3x3, smallest_eigvec, solve_spd_small, svd3x3
 from vo_tpu_torch.utils.profiling import span
@@ -32,7 +34,7 @@ class PnPConfig:
     """The JAX package's PnPConfig: same fields, same defaults."""
 
     n_hypotheses: int = 512
-    sample_size: int = 6
+    sample_size: int = 6            # the DLT bank's points; CUDA's bank kernel takes 6-16
     reproj_threshold: float = 1.5
     min_inliers: int = 20
     gn_iterations: int = 10
@@ -178,16 +180,8 @@ def pnp_ransac(
     valid (N,) mask, K (3, 3). points_3d_cur / valid_cur (rgbd) enable the Kabsch bank.
     """
     with span("pnp.ransac"):
-        with span("pnp.hypotheses"):
-            hyp_poses = _hypotheses(key, points_3d, points_2d, valid, K, cfg,
-                                    points_3d_cur, valid_cur)
-        with span("pnp.score"):
-            res, z = _reproject_residuals(hyp_poses, points_3d, points_2d, K)   # (H, N)
-            inl = (res < cfg.reproj_threshold) & (z > cfg.min_depth) & valid[None, :]
-            counts = inl.sum(dim=-1)
-            best = torch.argmax(counts)
-            best_pose, best_count, best_inl = (_pick(x, best)
-                                               for x in (hyp_poses, counts, inl))
+        best_pose, best_count, best_inl = _bank(key, points_3d, points_2d, valid, K, cfg,
+                                                points_3d_cur, valid_cur)
         if cfg.anneal:
             with span("pnp.anneal"):
                 pose0, best_count, best_inl = _anneal(best_pose, best_count, best_inl,
@@ -197,6 +191,33 @@ def pnp_ransac(
         with span("pnp.refine"):
             return _refine(pose0, best_count, best_inl, points_3d, points_2d, valid, K,
                            cfg)
+
+
+def _bank(key, points_3d, points_2d, valid, K, cfg: PnPConfig, points_3d_cur, valid_cur):
+    """The hypothesis bank, scored -> (best_pose (4, 4), best_count () int64, best_inl
+    (N,)): the first hypothesis with the most inliers. The plain version on the CPU, the
+    CUDA kernel (``ops/pnp_bank.py``, two launches) on CUDA."""
+    if points_3d.device.type == "cpu":
+        return _bank_plain(key, points_3d, points_2d, valid, K, cfg, points_3d_cur,
+                           valid_cur)
+    bank = launch_bank(key, points_3d, points_2d, valid, K, cfg.n_hypotheses,
+                       cfg.sample_size, cfg.reproj_threshold, cfg.min_depth,
+                       points_3d_cur, valid_cur)
+    return bank.pose, bank.count, bank.inliers
+
+
+def _bank_plain(key, points_3d, points_2d, valid, K, cfg: PnPConfig, points_3d_cur,
+                valid_cur):
+    """``_bank`` in plain PyTorch ops: the kernel's oracle."""
+    with span("pnp.hypotheses"):
+        hyp_poses = _hypotheses(key, points_3d, points_2d, valid, K, cfg, points_3d_cur,
+                                valid_cur)
+    with span("pnp.score"):
+        res, z = _reproject_residuals(hyp_poses, points_3d, points_2d, K)   # (H, N)
+        inl = (res < cfg.reproj_threshold) & (z > cfg.min_depth) & valid[None, :]
+        counts = inl.sum(dim=-1)
+        best = torch.argmax(counts)
+        return tuple(_pick(x, best) for x in (hyp_poses, counts, inl))
 
 
 def _hypotheses(key, points_3d, points_2d, valid, K, cfg: PnPConfig, points_3d_cur,
