@@ -1723,3 +1723,56 @@ def test_bench_on_the_card(cuda_device, monkeypatch, tmp_path, capsys):
     assert line["pallas_parity"] is True and line["io_loader"] == "native"
     assert line["device"].startswith("NVIDIA") and line["trajectory_sane"] is True
     assert match.launch_wgmma.launches >= 1 and match.launch_simt.launches >= 1
+
+
+def _d2net_cell():
+    """The ``d2net_ms.extract`` cell's configuration, traffic and driver (the benchmark's
+    harness on the path), its seed's weights and frames on the card."""
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from vobench import d2net_extract, harness
+
+    w = harness.workload("d2net_ms.extract")
+    return w["config"], w["traffic"], d2net_extract
+
+
+@pytest.mark.cuda
+def test_d2net_batch_at_kitti_size_within_the_cells_limits(cuda_device):
+    """One batch of 8 frames at 376 x 1232 through ``extract_d2net`` against the plain
+    reference (``ref_d2net``, frame by frame) with the cell's judge and limits; no
+    level's budget drops a keypoint."""
+    from vo_tpu_torch.models import d2net
+
+    config, traffic, drv = _d2net_cell()
+    inputs = drv.make_inputs(config, traffic, 2 ** 31 + 77, cuda_device)
+    stats = {}
+    got = drv.call(inputs, traffic, drv.program(config), cuda_device, 1, stats)
+    assert got["desc"].shape[-1] == 512 and int(got["valid"].sum()) > 8 * 1000
+    numbers = drv.judge(inputs, {1: got}, config, traffic, cuda_device)
+    limits = config["correctness"]["limits"]
+    assert all(numbers[k] <= v for k, v in limits.items()), numbers
+    assert d2net.read_counts(stats)["budget"] == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_d2net_counters_make_no_host_sync(cuda_device):
+    """``extract_d2net`` on frames already on the card, with its counters gathered,
+    makes no host sync; reading them afterwards does."""
+    from vo_tpu_torch.models import d2net
+
+    config, traffic, drv = _d2net_cell()
+    inputs = drv.make_inputs(config, traffic, 2 ** 31 + 78, cuda_device)
+    frames = torch.from_numpy(inputs["rgb"][:2]).to(cuda_device)
+    cfg, stats = drv.program(config), {}
+    d2net.extract_d2net(inputs["params"], frames, cfg, device=cuda_device)   # warm
+    syncs = _syncs_by_file(lambda: [d2net.extract_d2net(inputs["params"], frames, cfg,
+                                                        device=cuda_device, stats=stats)
+                                    for _ in range(2)])
+    assert syncs.get("d2net.py", 0) == 0, syncs
+    counts = d2net.read_counts(stats)
+    assert all(len(v) == 3 for v in counts.values()) and sum(counts["kept"]) > 0

@@ -21,7 +21,7 @@ to XLA (``lax.conv_general_dilated``), outside any Pallas kernel. While the span
 recorder (``utils/profiling.py``) is on, each runs inside an ``r2d2.conv`` device span
 that names its layer, kernel size, dilation, channels and the rows and size it runs
 at, from which its operations and bytes follow; while it is off, the site costs one
-flag test.
+flag test. ``conv_bias`` is that step, shared with D2-Net's trunk (``models/d2net.py``).
 """
 
 from __future__ import annotations
@@ -200,6 +200,23 @@ class PatchNet(nn.Module):
         return apply_patchnet(self, self.spec, images, compute_dtype=compute_dtype)
 
 
+def conv_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, pad: int, dilation: int,
+              dtype: torch.dtype, span: str, layer: int) -> torch.Tensor:
+    """One convolution of a trunk and its bias add, in ``dtype``: cuDNN's ``F.conv2d``
+    on the card (weights OIHW, symmetric padding ``pad``, stride 1), then ``+ b``.
+
+    While the span recorder is on, the convolution runs inside the device span ``span``
+    (``r2d2.conv``, ``d2net.conv``) with the attributes ``layer``, ``k``, ``dilation``,
+    ``cin``, ``cout`` and the ``rows``, ``h``, ``w`` of its input, from which its
+    operations and bytes follow; while it is off, the site costs one flag test."""
+    with (profiling.span(span, device=True, layer=layer, k=w.shape[-1], dilation=dilation,
+                         cin=w.shape[1], cout=w.shape[0], rows=x.shape[0], h=x.shape[2],
+                         w=x.shape[3])
+          if profiling.recording() else _NO_SPAN):
+        x = F.conv2d(x, w.to(dtype), padding=pad, dilation=dilation)
+    return x + b.to(dtype)[:, None, None]
+
+
 def _dtype(dt) -> torch.dtype:
     return getattr(torch, dt) if isinstance(dt, str) else dt
 
@@ -255,12 +272,7 @@ def apply_patchnet(params, spec: PatchNetSpec, images: torch.Tensor, train: bool
     bn_stats = []
     x = images.to(dt).permute(0, 3, 1, 2)          # NCHW view of NHWC memory
     for i, (cs, layer) in enumerate(zip(spec.convs, params["convs"])):
-        with (profiling.span("r2d2.conv", device=True, layer=i, k=cs.k,
-                             dilation=cs.dilation, cin=cs.in_ch, cout=cs.out_ch,
-                             rows=x.shape[0], h=x.shape[2], w=x.shape[3])
-              if profiling.recording() else _NO_SPAN):
-            x = F.conv2d(x, layer["w"].to(dt), padding=cs.pad, dilation=cs.dilation)
-        x = x + layer["b"].to(dt)[:, None, None]
+        x = conv_bias(x, layer["w"], layer["b"], cs.pad, cs.dilation, dt, "r2d2.conv", i)
         if cs.bn:
             xf = x.to(acc)
             if train:

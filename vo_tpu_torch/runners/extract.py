@@ -12,6 +12,14 @@ together, in batches of ``--batch``.
 
 ``--model`` names a checkpoint under ``vo_tpu_torch/models/weights/``
 (``models/port_weights.py::load_pretrained``); a missing one is an error.
+
+A D2-Net model name (``d2_tf``, ``d2_ots``, ...: ``<name>.pth`` there,
+``models/d2net.py::load_d2net_checkpoint``) runs ``extract_d2net`` instead, as the
+upstream's ``extract_features.py`` does: single-scale, or at the scales 0.5, 1 and 2
+with ``--multiscale``; it writes ``<image>.d2-net`` npz files (keypoints N x 3 [x, y,
+1/scale], scores, descriptors). The R2D2 options do not apply to it.
+
+    python -m vo_tpu_torch.runners.extract --model d2_tf --multiscale --images a.png
 """
 
 from __future__ import annotations
@@ -42,10 +50,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", default="faster2d2_WASF_N16",
-                    help="published checkpoint name (<name>.pt in the weights directory)")
+                    help="published checkpoint name (<name>.pt in the weights directory; "
+                         "a d2_ name: D2-Net's <name>.pth)")
     ap.add_argument("--images", nargs="+", required=True,
                     help="image paths and/or .txt list files")
-    ap.add_argument("--tag", default="r2d2", help="output suffix (-> <img>.<tag>)")
+    ap.add_argument("--tag", default=None,
+                    help="output suffix (-> <img>.<tag>; default r2d2, or d2-net for D2-Net)")
+    ap.add_argument("--multiscale", action="store_true",
+                    help="D2-Net: the scales 0.5, 1, 2 (default: 1 alone)")
     ap.add_argument("--top-k", type=int, default=5000)
     ap.add_argument("--scale-f", type=float, default=2 ** 0.25)
     ap.add_argument("--min-size", type=int, default=256)
@@ -68,18 +80,31 @@ def main(argv=None) -> int:
 
     from vo_tpu_torch.device import resolve_device
     from vo_tpu_torch.io.dataset import _read_png_rgb
-    from vo_tpu_torch.models import port_weights
+    from vo_tpu_torch.models import d2net, port_weights
     from vo_tpu_torch.models.multiscale import (MultiscaleConfig, extract_multiscale,
                                                 save_r2d2_npz)
     from vo_tpu_torch.models.patchnet import params_to
 
     dev = resolve_device(args.device)
-    spec, params = port_weights.load_pretrained(args.model)
-    params = params_to(params, dev)
-    cfg = MultiscaleConfig(
-        scale_f=args.scale_f, min_scale=args.min_scale, max_scale=args.max_scale,
-        min_size=args.min_size, max_size=args.max_size, top_k=args.top_k,
-        rel_thr=args.reliability_thr, rep_thr=args.repeatability_thr)
+    if args.model.startswith("d2_"):
+        tag = args.tag or "d2-net"
+        params = d2net.load_d2net_checkpoint(
+            os.path.join(port_weights.MODELS_DIR, f"{args.model}.pth"))
+        params = d2net.params_to(params, dev)
+        dcfg = d2net.D2NetConfig(scales=(0.5, 1.0, 2.0) if args.multiscale else (1.0,))
+        run = lambda imgs: d2net.extract_d2net(params, imgs, dcfg, device=dev)
+        save = lambda p, feats, i, im: d2net.save_d2net_npz(f"{p}.{tag}", feats, frame=i)
+    else:
+        tag = args.tag or "r2d2"
+        spec, params = port_weights.load_pretrained(args.model)
+        params = params_to(params, dev)
+        cfg = MultiscaleConfig(
+            scale_f=args.scale_f, min_scale=args.min_scale, max_scale=args.max_scale,
+            min_size=args.min_size, max_size=args.max_size, top_k=args.top_k,
+            rel_thr=args.reliability_thr, rep_thr=args.repeatability_thr)
+        run = lambda imgs: extract_multiscale(params, spec, imgs, cfg, device=dev)
+        save = lambda p, feats, i, im: save_r2d2_npz(
+            f"{p}.{tag}", feats, imsize=(im.shape[1], im.shape[0]), frame=i)
 
     by_shape: dict[tuple, list[tuple[str, np.ndarray]]] = defaultdict(list)
     for p in expand_image_list(args.images):
@@ -89,14 +114,12 @@ def main(argv=None) -> int:
     for group in by_shape.values():
         for s in range(0, len(group), args.batch):
             chunk = group[s:s + args.batch]
-            feats = extract_multiscale(params, spec, np.stack([im for _, im in chunk]),
-                                       cfg, device=dev)
+            feats = run(np.stack([im for _, im in chunk]))
             for i, (p, im) in enumerate(chunk):
-                out = save_r2d2_npz(f"{p}.{args.tag}", feats,
-                                    imsize=(im.shape[1], im.shape[0]), frame=i)
+                out = save(p, feats, i, im)
                 print(f"Saving {int(feats.valid[i].sum())} keypoints to {out}")
                 if args.kapture_root:
-                    save_kapture_features(args.kapture_root, args.tag, p, feats, i,
+                    save_kapture_features(args.kapture_root, tag, p, feats, i,
                                           image_root=args.kapture_image_root)
     return 0
 
