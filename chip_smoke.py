@@ -323,9 +323,10 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _device_ops(fn) -> dict:
+def _device_ops(fn, runtime: dict | None = None) -> dict:
     """{device operation name: (executions, ns)} of one ``fn()`` run under torch.profiler:
-    each kernel of a CUDA-graph replay is an execution of its own."""
+    each kernel of a CUDA-graph replay is an execution of its own. ``runtime``, when
+    given, receives {CUDA runtime or driver call: calls} of the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -335,37 +336,67 @@ def _device_ops(fn) -> dict:
         torch.cuda.synchronize()
     by_name: dict = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+        if e.is_user_annotation():
+            continue
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
             count, ns = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (count + 1, ns + e.duration_ns())
+        elif runtime is not None:
+            runtime[e.name()] = runtime.get(e.name(), 0) + 1
     return by_name
 
 
-def _traced_replays(name, engine, args, kernel) -> dict:
+def _traced_replays(name, engine, args, kernel, extract=None) -> dict:
     """``engine.run_sequence(*args)`` on a signature already captured, under the
     profiler: every step must replay the step's graph, and the device trace must show
     one execution of the match ``kernel`` per replay and none of the other, two of
-    PnP's Gauss-Newton kernel and one of each of its bank's two kernels.
-    -> {"replays": n, kernel: executions, GN_KERNEL: ..., BANK_KERNEL: ..., BANK_PICK: ...}."""
+    PnP's Gauss-Newton kernel and one of each of its bank's two kernels. With
+    ``extract`` = (an upright-BRIEF ``OrbLikeExtractor``, chunks of frames on a
+    signature already captured), the extractor first runs over the chunks in the same
+    trace: every call must replay the extraction's graph, one graph launch a chunk
+    beside the steps' (the runtime's calls in the trace), and one execution of the
+    BRIEF kernel per replay.
+    -> {"replays": n, kernel: executions, GN_KERNEL: ..., BANK_KERNEL: ..., BANK_PICK: ...
+    [, "extract_replays": chunks, BRIEF_KERNEL: ..., "graph_launches": ...]}."""
     from vo_tpu_torch.engine.vo import step_counts
+    from vo_tpu_torch.features.extractor import extract_counts
 
-    before = dict(step_counts)
-    ops = _device_ops(lambda: engine.run_sequence(*args))
+    extractor, chunks = extract if extract is not None else (None, [])
+    before, calls0 = dict(step_counts), dict(extract_counts)
+    runtime: dict = {}
+
+    def run():
+        for c in chunks:
+            extractor(c)
+        engine.run_sequence(*args)
+
+    ops = _device_ops(run, runtime)
     steps = {k: step_counts[k] - before[k] for k in ("graph_captures", "graph_replays",
                                                       "eager_steps")}
+    calls = {k: extract_counts[k] - calls0[k] for k in extract_counts}
     runs = {k: sum(c for op, (c, _) in ops.items() if k in op)
-            for k in (*KERNELS, GN_KERNEL, BANK_KERNEL, BANK_PICK)}
-    n = args[0].shape[0] - 1
-    print(f"{name}, {n} steps under the profiler: {steps}; kernels in the device "
-          f"trace {runs}")
+            for k in (*KERNELS, GN_KERNEL, BANK_KERNEL, BANK_PICK, BRIEF_KERNEL)}
+    n, m = args[0].shape[0] - 1, len(chunks)
+    launches = runtime.get("cudaGraphLaunch", 0)
+    print(f"{name}, {m} extraction chunks and {n} steps under the profiler: {steps}, "
+          f"extraction {calls}, {launches} graph launches; kernels in the device trace "
+          f"{runs}")
     want = {k: n if k == kernel else 0 for k in KERNELS}
     want[GN_KERNEL] = 2 * n
     want[BANK_KERNEL] = want[BANK_PICK] = n
-    if steps != {"graph_captures": 0, "graph_replays": n, "eager_steps": 0} or runs != want:
-        raise AssertionError(f"{name}: {steps}, trace {runs}; expected {n} replays and "
-                             f"{want}")
-    return {"replays": n, kernel: runs[kernel], GN_KERNEL: runs[GN_KERNEL],
-            BANK_KERNEL: runs[BANK_KERNEL], BANK_PICK: runs[BANK_PICK]}
+    want[BRIEF_KERNEL] = m
+    if (steps != {"graph_captures": 0, "graph_replays": n, "eager_steps": 0}
+            or calls != {"graph_captures": 0, "graph_replays": m, "eager_calls": 0}
+            or launches != n + m or runs != want):
+        raise AssertionError(f"{name}: {steps}, extraction {calls}, {launches} graph "
+                             f"launches, trace {runs}; expected {n} step and {m} "
+                             f"extraction replays, {n + m} graph launches and {want}")
+    out = {"replays": n, kernel: runs[kernel], GN_KERNEL: runs[GN_KERNEL],
+           BANK_KERNEL: runs[BANK_KERNEL], BANK_PICK: runs[BANK_PICK]}
+    if m:
+        out.update(extract_replays=m, graph_launches=launches,
+                   **{BRIEF_KERNEL: runs[BRIEF_KERNEL]})
+    return out
 
 
 def _device_profile(fn):
@@ -386,14 +417,15 @@ def _device_profile(fn):
 
 
 def _counts() -> dict:
-    """Every registered kernel's launches: {"wgmma": n, "simt": n, "gn": n, "bank": n}."""
-    from vo_tpu_torch.ops import kernels, match, pnp_bank, pnp_gn  # noqa: F401 (register)
+    """Every registered kernel's launches: {"wgmma": n, "simt": n, "gn": n, "bank": n,
+    "brief": n}."""
+    from vo_tpu_torch.ops import brief, kernels, match, pnp_bank, pnp_gn  # noqa: F401
 
     return {name: fn.launches for name, fn in kernels.counters().items()}
 
 
 def _reset_counts() -> None:
-    from vo_tpu_torch.ops import kernels, match, pnp_bank, pnp_gn  # noqa: F401 (register)
+    from vo_tpu_torch.ops import brief, kernels, match, pnp_bank, pnp_gn  # noqa: F401
 
     for fn in kernels.counters().values():
         fn.launches = 0
@@ -420,6 +452,7 @@ KERNELS = ("top2_wgmma_kernel", "top2_simt_kernel")
 GN_KERNEL = "pnp_gn_kernel"
 BANK_KERNEL = "pnp_bank_kernel"     # the bank's first launch
 BANK_PICK = "pnp_bank_pick"         # its second: the first maximum
+BRIEF_KERNEL = "brief_kernel"       # upright BRIEF at the keypoints
 
 
 def _ptxas_lines(out: str) -> list[str]:
@@ -797,6 +830,66 @@ def _bank_timing(card, dev, n_rep=50) -> dict:
           f"back-to-back: kernel {eager['ms']:.4f} ms, plain {eager['plain_ms']:.4f} ms")
     return {"ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "n": n,
+            "against_plain": gap}
+
+
+def _replay_equals_eager(name, extractor, frames, feats) -> None:
+    """``feats``, the features of ``frames`` that a replay of ``extractor``'s CUDA graph
+    gave, against the extractor's body run eagerly on them: equal bit for bit."""
+    eager = extractor._extract(frames)
+    same = {f: bool(a.dtype == b.dtype and a.shape == b.shape and (a == b).all())
+            for f, a, b in zip(eager._fields, feats, eager)}
+    print(f"{name}: the replayed extraction of {frames.shape[0]} frames against the "
+          f"eager one, field by field equal: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{name}: the replayed extraction differs: {same}")
+
+
+def _brief_timing(card, imgs, kp, valid, n_rep=50) -> dict:
+    """Phase 4: the BRIEF kernel on a chunk of the main path's frames and its keypoints
+    (N = 2048 x 16 frames, 256 bits), held against the plain version and the dense path
+    bit for bit on the same CUDA tensors, then kernel, plain version and dense path timed
+    over CUDA-graph replays (L2 warm) and the kernel and plain version eagerly."""
+    import torch
+
+    from vo_tpu_torch.features import dense_brief
+    from vo_tpu_torch.ops import brief
+    from vo_tpu_torch.ops.image import gaussian_blur
+    from vo_tpu_torch.ops.match_timing import eager_ms, graph_ms
+
+    bits = dense_brief.BRIEF_BITS
+    smoothed = gaussian_blur(imgs, 2.0)
+    offsets = dense_brief._offsets_on(bits, imgs.device)
+    args = (smoothed, kp, valid, offsets)
+    got = brief.launch_brief(*args)
+    plain = brief.keypoint_brief_plain(*args)
+    dense = dense_brief.gather_brief_descriptors(dense_brief.dense_packed_brief(imgs, bits),
+                                                 kp, valid, bits)
+    rows = (lambda a: (a.view(torch.int16) != got.view(torch.int16)).any(-1).sum())
+    gap = {"rows_off_plain": int(rows(plain)), "rows_off_dense": int(rows(dense))}
+    B, H, W = imgs.shape
+    n = B * kp.shape[1]
+    print(f"brief kernel vs plain version and dense path at N = {kp.shape[1]} x {B} "
+          f"frames, {bits} bits (bit for bit): {gap}")
+    if gap != {"rows_off_plain": 0, "rows_off_dense": 0}:
+        raise AssertionError(f"the BRIEF kernel differs from its plain version: {gap}")
+    fns = {"ms": lambda: brief.launch_brief(*args),
+           "plain_ms": lambda: brief.keypoint_brief_plain(*args)}
+    tm = {k: graph_ms(fn, n_rep) for k, fn in fns.items()}
+    eager = {k: eager_ms(fn, n_rep) for k, fn in fns.items()}
+    tm["dense_ms"] = graph_ms(lambda: dense_brief.gather_brief_descriptors(
+        dense_brief.dense_packed_brief(imgs, bits), kp, valid, bits), 5, per=1)
+    # Bytes: the descriptors written, the keypoints and flags read, the blurred image
+    # read once (the patches of 2,048 keypoints cover most of a frame).
+    nbytes = n * (2 * bits + 8 + 1) + B * H * W * 4 + bits * 16
+    bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    print(f"brief kernel [{card}] N = {n}, {bits} bits: kernel {tm['ms']:.4f} ms, plain "
+          f"{tm['plain_ms']:.4f} ms, dense path {tm['dense_ms']:.4f} ms, bound "
+          f"{bound_ms * 1e3:.2f} us ({nbytes / 1e6:.2f} MB at 3.35 TB/s), "
+          f"{bound_ms / tm['ms'] * 100:.2f} % of the bound (CUDA-graph replays); eager "
+          f"back-to-back: kernel {eager['ms']:.4f} ms, plain {eager['plain_ms']:.4f} ms")
+    return {"ms": tm["ms"], "plain_ms": tm["plain_ms"], "dense_ms": tm["dense_ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "n": n, "bits": bits,
             "against_plain": gap}
 
 
@@ -1315,6 +1408,8 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
         raise AssertionError(f"SURF descriptors {tuple(ufeats.desc.shape)} {ufeats.desc.dtype}")
     if not _gate(f"SURF path, {m} frames", uposes, udiag.accepted, gt[:m], counts["simt"]):
         raise AssertionError("the SURF path failed the trajectory gate")
+    _replay_equals_eager("SURF path", surf, imgs_d[EXTRACT_BATCH:2 * EXTRACT_BATCH],
+                         [x[EXTRACT_BATCH:2 * EXTRACT_BATCH] for x in ufeats])
     _, _, u_engine_ms = _engine_run(VOEngine(surf_cfg, device=dev),
                                     (ufeats.kp[:F_PASS], ufeats.desc[:F_PASS],
                                      ufeats.valid[:F_PASS]), ukp3d[:F_PASS], Kd)
@@ -1345,6 +1440,9 @@ def _front_ends_phase(card, imgs, deps, rights, gt, cfg, errs, dev="cuda") -> di
     if not _gate(f"oriented BRIEF path, {m} frames", oposes, odiag.accepted, gt[:m],
                  counts["wgmma"]):
         raise AssertionError("the oriented-BRIEF path failed the trajectory gate")
+    _replay_equals_eager("oriented BRIEF path", oriented,
+                         imgs_d[EXTRACT_BATCH:2 * EXTRACT_BATCH],
+                         [x[EXTRACT_BATCH:2 * EXTRACT_BATCH] for x in ofeats])
     ofeats4 = (ofeats.kp, ofeats.desc, ofeats.valid)
     _plain_matcher_identical("oriented BRIEF path", cfg, ofeats4, okp3d, Kd, oposes, dev)
     _, _, o_engine_ms = _engine_run(VOEngine(cfg, device=dev),
@@ -2533,7 +2631,7 @@ def _smoke(second, conn, work) -> None:
     from vo_tpu_torch.engine.pipeline import extract_and_backproject, run_offline_vo
     from vo_tpu_torch.engine.vo import VOConfig, VOEngine, step_counts
     from vo_tpu_torch.estimation.pnp import PnPConfig
-    from vo_tpu_torch.features.extractor import OrbLikeExtractor
+    from vo_tpu_torch.features.extractor import OrbLikeExtractor, extract_counts
     from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
     from vo_tpu_torch.io.native import build_loader
     from vo_tpu_torch.ops import kernels, match
@@ -2547,7 +2645,7 @@ def _smoke(second, conn, work) -> None:
     ptxas_lines = _ptxas_lines(ptxas)
     for line in ptxas_lines:
         print(f"  ptxas: {line}")
-    for kernel in (*KERNELS, GN_KERNEL, BANK_KERNEL, BANK_PICK):
+    for kernel in (*KERNELS, GN_KERNEL, BANK_KERNEL, BANK_PICK, BRIEF_KERNEL):
         if build_s > 0 and not any(x.startswith(kernel) for x in ptxas_lines):
             raise AssertionError(f"ptxas printed nothing for {kernel}")
     second.start()
@@ -2591,10 +2689,11 @@ def _smoke(second, conn, work) -> None:
                                       valid_a, valid_b, False, True))
     phase_s["kernel_checks_workload"] = time.perf_counter() - t0
 
-    # Phase 4: main path, counted; the engine's CUDA graph is captured here.
+    # Phase 4: main path, counted; the engine's and the extraction's CUDA graphs are
+    # captured here.
     t0 = time.perf_counter()
     _reset_counts()
-    steps0 = dict(step_counts)
+    steps0, calls0 = dict(step_counts), dict(extract_counts)
     poses, diag, (feats, kp3d) = run_offline_vo(
         imgs, deps, K, vo_config=cfg, extractor=extractor,
         extraction_batch=EXTRACT_BATCH, return_features=True, device="cuda")
@@ -2602,12 +2701,21 @@ def _smoke(second, conn, work) -> None:
     launches = counts["wgmma"]
     gn_launches = counts["gn"]
     bank_calls = counts["bank"]
+    brief_launches = counts["brief"]
     phase_s["main_path"] = time.perf_counter() - t0
     steps = {k: step_counts[k] - steps0[k] for k in step_counts}
+    calls = {k: extract_counts[k] - calls0[k] for k in extract_counts}
     phase_s["main_path_graph_capture"] = steps["capture_s"]
     print(f"main path engine steps: {steps['graph_captures']} CUDA-graph capture(s) in "
           f"{steps['capture_s']:.3f} s, {steps['graph_replays']} replays, "
-          f"{steps['eager_steps']} eager")
+          f"{steps['eager_steps']} eager; extraction {calls}, BRIEF kernel launches "
+          f"{brief_launches}")
+    n_chunks = F // EXTRACT_BATCH
+    if (calls != {"graph_captures": 1, "graph_replays": n_chunks - 1, "eager_calls": 1}
+            or brief_launches != n_chunks):
+        raise AssertionError(f"main path extraction {calls}, {brief_launches} BRIEF "
+                             f"launches; expected one capture, {n_chunks - 1} replays and "
+                             f"{n_chunks} launches")
     if _matches(counts) != {"wgmma": F - 1, "simt": 0}:
         raise AssertionError(f"main path launches {counts}, expected {F - 1} wgmma, 0 simt")
     print(f"main path Gauss-Newton kernel launches {gn_launches}")
@@ -2617,10 +2725,14 @@ def _smoke(second, conn, work) -> None:
     print(f"main path bank kernel calls {bank_calls}")
     if bank_calls != F - 1:
         raise AssertionError(f"main path bank calls {bank_calls}, expected {F - 1}")
+    _replay_equals_eager("main path", extractor, imgs_d[EXTRACT_BATCH:2 * EXTRACT_BATCH],
+                         [x[EXTRACT_BATCH:2 * EXTRACT_BATCH] for x in feats])
     m = F_TIMED // 2 + 1
     traced = {"main path": _traced_replays(
         "main path", VOEngine(cfg, device=dev),
-        (feats.kp[:m], feats.desc[:m], feats.valid[:m], kp3d[:m], Kd), "top2_wgmma_kernel")}
+        (feats.kp[:m], feats.desc[:m], feats.valid[:m], kp3d[:m], Kd), "top2_wgmma_kernel",
+        extract=(extractor, [imgs_d[s:s + EXTRACT_BATCH]
+                             for s in range(0, 2 * EXTRACT_BATCH, EXTRACT_BATCH)]))}
     if not np.isfinite(poses).all() or poses.shape != (F, 4, 4):
         raise AssertionError(f"bad poses: shape {poses.shape}, finite {np.isfinite(poses).all()}")
     print(f"main path keyframes {int(diag.promoted_keyframe.sum())}")
@@ -2639,6 +2751,12 @@ def _smoke(second, conn, work) -> None:
     bank_frames = _bank_against_plain("main path", cfg, feats, kp3d, Kd)
     bank_timing = _bank_timing(card, dev)
     phase_s["bank_vs_plain"] = time.perf_counter() - t0
+
+    # The BRIEF kernel against its plain version on the main path's first chunk, timed.
+    t0 = time.perf_counter()
+    brief_timing = _brief_timing(card, imgs_d[:EXTRACT_BATCH], feats.kp[:EXTRACT_BATCH],
+                                 feats.valid[:EXTRACT_BATCH])
+    phase_s["brief_vs_plain"] = time.perf_counter() - t0
 
     # Phase 5: the float-mode path (the matchers of float descriptors), counted: the
     # binary descriptors as fp32 unit vectors, whose products and sums are exact.
@@ -2858,6 +2976,22 @@ def _smoke(second, conn, work) -> None:
                            {"replays": t["replays"], BANK_KERNEL: t[BANK_KERNEL],
                             BANK_PICK: t[BANK_PICK]}
                            for path, t in traced.items()}})
+
+    entries.append({
+        "name": f"brief N={brief_timing['n']} x {brief_timing['bits']} bits",
+        "route": "cuda",
+        "source": "vo_tpu_torch/ops/csrc/brief.cu",
+        "replaces": "none (vo_tpu/features/dense_brief.py::dense_packed_brief and "
+                    "gather_brief_descriptors, fused by XLA)",
+        "launches": brief_launches,
+        "launches_by_path": {"main path (run_offline_vo, 160 frames)": brief_launches},
+        **{k: brief_timing[k] for k in ("ms", "plain_ms", "dense_ms", "bound_ms",
+                                        "bound_by", "against_plain")},
+        "library_ms": None,
+        "traced_replays": {f"main path ({t['extract_replays']} extraction replays)":
+                           {"replays": t["extract_replays"], BRIEF_KERNEL: t[BRIEF_KERNEL],
+                            "graph_launches": t["graph_launches"]}
+                           for t in (traced["main path"],)}})
 
     phase_s["total"] = time.perf_counter() - t_all
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -35,7 +35,11 @@ graph, and its launches in the streaming entry's stats. PnP's hypothesis-bank ke
 against ``_sample_indices`` (the draws, bit for bit) and the plain bank (each
 hypothesis, the counts, the pick), on edge cases (no valid point, 1 and 5 valid
 points, a DLT-only bank, 256 hypotheses, ragged N, a planar scene, sample sizes 8 and
-16), and captured in a graph.
+16), and captured in a graph. The keypoint BRIEF kernel against the dense path and its
+plain version bit for bit at the replay's size (256 and 512 bits, invalid rows,
+keypoints on the border margin and past the frame); ``OrbLikeExtractor``'s CUDA graph
+against its eager body bit for bit (upright BRIEF, SURF, oriented BRIEF), and one
+capture per signature over a 10-chunk streaming run, its ``stats`` counting the replays.
 """
 
 import time
@@ -1776,3 +1780,121 @@ def test_d2net_counters_make_no_host_sync(cuda_device):
     assert syncs.get("d2net.py", 0) == 0, syncs
     counts = d2net.read_counts(stats)
     assert all(len(v) == 3 for v in counts.values()) and sum(counts["kept"]) > 0
+
+
+def _brief_case(dev, B=16, H=376, W=1232, K=2048, seed=23):
+    """A batch of noise frames with flat patches (equal compares), keypoints over the
+    whole frame and past it, on the 13 px border margin and on the edges, 20 % invalid."""
+    rng = np.random.default_rng(seed)
+    gray = rng.uniform(0, 255, (B, H, W)).astype(np.float32)
+    gray[:, 100:140, 200:300] = 77.0
+    kp = np.stack([rng.uniform(-3, W + 3, (B, K)), rng.uniform(-3, H + 3, (B, K))],
+                  axis=-1).astype(np.float32)
+    edge = np.array([[0, 0], [W - 1, H - 1], [12.9, 13.0], [W - 13.5, H - 13.2],
+                     [-0.7, 5.5], [W + 40, -40], [250.5, 120.5]], np.float32)
+    kp[:, :len(edge)] = edge
+    valid = rng.uniform(size=(B, K)) > 0.2
+    valid[:, :len(edge)] = True
+    return (torch.from_numpy(gray).to(dev), torch.from_numpy(kp).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [256, 512])
+def test_brief_kernel_equals_the_dense_path(cuda_device, bits):
+    """The keypoint BRIEF kernel at the replay's size (16 frames of 376 x 1232, 2,048
+    keypoints) gives the dense path's bits (``dense_packed_brief`` then
+    ``gather_brief_descriptors``) and its plain version's on the same tensors, in one
+    launch."""
+    from vo_tpu_torch.features import dense_brief
+    from vo_tpu_torch.ops import brief
+    from vo_tpu_torch.ops.image import gaussian_blur
+
+    gray, kp, valid = _brief_case(cuda_device)
+    before = brief.launch_brief.launches
+    got = dense_brief.upright_brief_descriptors(gray, kp, valid, bits=bits)
+    torch.cuda.synchronize()
+    assert brief.launch_brief.launches == before + 1
+    dense = dense_brief.gather_brief_descriptors(
+        dense_brief.dense_packed_brief(gray, bits=bits), kp, valid, bits=bits)
+    offsets = dense_brief._offsets_on(bits, gray.device)
+    plain = brief.keypoint_brief_plain(gaussian_blur(gray, 2.0), kp, valid, offsets)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (16, 2048, bits)
+    assert torch.equal(got.view(torch.int16), dense.view(torch.int16))
+    assert torch.equal(got.view(torch.int16), plain.view(torch.int16))
+    assert (got[~valid].view(torch.int16) == 0).all()
+
+
+@pytest.fixture
+def fresh_extract_graphs(monkeypatch):
+    """An empty cache of the extraction's graphs, a new capture stream and memory pool."""
+    from vo_tpu_torch.features import extractor
+
+    monkeypatch.setattr(extractor, "_graphs", {})
+    monkeypatch.setattr(extractor, "_capture_home", {})
+    monkeypatch.setattr(extractor, "_last_replay", {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(response="hessian", descriptor="surf"),
+                                dict(oriented=True)],
+                         ids=["harris_brief", "surf", "oriented_brief"])
+def test_replayed_extraction_equals_the_eager_one(cuda_device, fresh_extract_graphs, kw):
+    """``OrbLikeExtractor`` on the card: the first call of a signature captures its graph
+    and gives the eager features; each later call replays it and gives the same bits as
+    the body run eagerly, in tensors of its own (not the graph's); numpy input and RGB
+    frames take the graph too, one capture per signature."""
+    from vo_tpu_torch.features import extractor
+    from vo_tpu_torch.ops import brief
+
+    imgs, _, _ = _render_stereo(4, K_SMALL)
+    ex = extractor.OrbLikeExtractor(max_kp=512, **kw)
+    counts0 = dict(extractor.extract_counts)
+    gray = torch.from_numpy(imgs).to(cuda_device)
+    eager = ex._extract(gray)
+    first = ex(gray)
+    brief0 = brief.launch_brief.launches
+    reps = [ex(gray), ex(imgs)]
+    torch.cuda.synchronize()
+    (g,) = extractor._graphs.values()
+    for out in (first, *reps):
+        for a, b, own in zip(out, eager, g.features):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+            assert a.data_ptr() != own.data_ptr()
+    uses_kernel = not kw                        # only upright BRIEF runs the kernel
+    assert brief.launch_brief.launches - brief0 == (2 if uses_kernel else 0)
+    rgb = torch.from_numpy(np.repeat(imgs[..., None], 3, axis=-1)).to(cuda_device)
+    assert torch.equal(ex(rgb).desc, ex(rgb).desc)
+    assert {k: extractor.extract_counts[k] - counts0[k] for k in counts0} == {
+        "graph_captures": 2, "graph_replays": 3, "eager_calls": 2}
+
+
+@pytest.mark.cuda
+def test_streaming_extraction_captures_once_and_replays(cuda_device, fresh_extract_graphs):
+    """A 10-chunk streaming run captures the extraction once (the first chunk, eager)
+    and replays it for the other 9, as its ``stats`` count; a second run replays all 10
+    and gives the same features and poses; the BRIEF kernel runs once a chunk."""
+    from vo_tpu_torch.engine.pipeline import run_offline_vo_streaming
+    from vo_tpu_torch.features import extractor
+    from vo_tpu_torch.ops import brief
+    from vo_tpu_torch.utils.synthetic import render_sequence
+
+    imgs, deps, _ = render_sequence(40, K_SMALL, H=240, W=320, step=0.8, yaw_rate=0.01)
+    runs = []
+    for _ in range(2):
+        stats: dict = {}
+        captures0, brief0 = extractor.extract_counts["graph_captures"], brief.launch_brief.launches
+        batches = ((s, imgs[s:s + 4], deps[s:s + 4]) for s in range(0, 40, 4))
+        poses, _, (feats, _, _) = run_offline_vo_streaming(
+            batches, 40, K_SMALL, vo_config=_graph_config(seed=108),
+            extractor=extractor.OrbLikeExtractor(max_kp=512), prefetch=2,
+            transfer_depth="sparse", device=cuda_device, stats=stats)
+        torch.cuda.synchronize()
+        runs.append((poses, feats, stats, extractor.extract_counts["graph_captures"] - captures0,
+                     brief.launch_brief.launches - brief0))
+    (p0, f0, s0, c0, b0), (p1, f1, s1, c1, b1) = runs
+    assert s0["chunks"] == s1["chunks"] == 10 and (c0, c1) == (1, 0) and b0 == b1 == 10
+    assert (s0["extract_eager_calls"], s0["extract_graph_replays"]) == (1, 9)
+    assert (s1["extract_eager_calls"], s1["extract_graph_replays"]) == (0, 10)
+    assert np.array_equal(p0, p1)
+    assert all(torch.equal(a, b) for a, b in zip(f0, f1))

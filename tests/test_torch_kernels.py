@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from vo_tpu_torch.io import native
-from vo_tpu_torch.ops import kernels, match, pnp_bank, pnp_gn
+from vo_tpu_torch.ops import brief, kernels, match, pnp_bank, pnp_gn
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "vo_tpu_torch"
 CPU = torch.device("cpu")
@@ -32,7 +32,8 @@ def capturing(monkeypatch):
 
 @pytest.mark.parametrize("kernel,wrapper", [("wgmma", match.launch_wgmma),
                                             ("gn", pnp_gn.launch_gn),
-                                            ("bank", pnp_bank.launch_bank)])
+                                            ("bank", pnp_bank.launch_bank),
+                                            ("brief", brief.launch_brief)])
 def test_capture_tally_and_replay_counts(monkeypatch, capturing, kernel, wrapper):
     """A launch while the stream captures goes to the capture's tally, not to the
     counters; ``end_capture`` hands the tally over once; each replay of the graph adds
@@ -135,13 +136,14 @@ def _names(path: pathlib.Path) -> set[str]:
 
 
 def test_only_ops_reaches_into_the_kernels():
-    """The streaming entry imports nothing of ``vo_tpu_torch.ops``, PnP's kernel module
-    does not import the match module, and the engine names no kernel's scratch or
+    """The streaming entry imports nothing of ``vo_tpu_torch.ops``, PnP's and BRIEF's
+    kernel modules do not import the match module, and the engine names no kernel's scratch or
     tally: those stay behind ``ops/kernels.py``."""
     assert not [m for m in _imports(PORT / "engine" / "pipeline.py")
                 if m.startswith("vo_tpu_torch.ops")]
     assert "vo_tpu_torch.ops.match" not in _imports(PORT / "ops" / "pnp_gn.py")
     assert "vo_tpu_torch.ops.match" not in _imports(PORT / "ops" / "pnp_bank.py")
+    assert "vo_tpu_torch.ops.match" not in _imports(PORT / "ops" / "brief.py")
     for path in (PORT / "engine").glob("*.py"):
         assert not _names(path) & {"take_scratch", "take_captured", "count_replay",
                                    "_scratch", "_captured"}, path.name

@@ -213,6 +213,20 @@ def test_stream_stats(frames):
     assert stats["d2h_bytes"] == B * 512 * 2 * 2 + (B - 1) * 21 * 4
 
 
+def test_stream_stats_count_the_eager_extractions(frames):
+    """Off CUDA every call of ``OrbLikeExtractor`` runs eagerly: the entry's ``stats``
+    count one a chunk and no graph replay, over this call alone."""
+    from vo_tpu_torch.features import extractor
+
+    EX(frames[0][:B], device="cpu")               # a call outside the entry's
+    before = dict(extractor.extract_counts)
+    stats = {}
+    _port(frames, upto=8, n=8, transfer_depth="sparse", stats=stats)
+    assert stats["chunks"] == 2
+    assert (stats["extract_eager_calls"], stats["extract_graph_replays"]) == (2, 0)
+    assert extractor.extract_counts == {**before, "eager_calls": before["eager_calls"] + 2}
+
+
 def _checkpoint_layout(path):
     with np.load(path) as blob:
         return {k: (blob[k].dtype, blob[k].shape) for k in blob.files}

@@ -221,7 +221,8 @@ def test_recorder_changes_no_output_and_records_nothing_when_off(frames, traced)
     np.testing.assert_array_equal(rows, rows0)
     assert set(stats) == {"queue_wait_s", "sync_wait_s", "engine_s", "h2d_bytes",
                           "d2h_bytes", "chunks", "graph_replays", "eager_steps",
-                          "engine_device_s", "gn_kernel_solves", "bank_kernel_calls"}
+                          "engine_device_s", "gn_kernel_solves", "bank_kernel_calls",
+                          "extract_graph_replays", "extract_eager_calls"}
 
 
 def test_off_costs_one_shared_null_context():

@@ -17,7 +17,7 @@ import torch
 
 from vo_tpu_torch.device import resolve_device, to_device
 from vo_tpu_torch.engine.vo import ReplayTimer, VOConfig, VOEngine, VOStepDiagnostics
-from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor
+from vo_tpu_torch.features.extractor import Features, OrbLikeExtractor, extraction_counts
 from vo_tpu_torch.features.pyramid import MultiScaleClassicExtractor
 from vo_tpu_torch.features.stereo import stereo_depth_at
 from vo_tpu_torch.geometry.camera import depth_to_3d_at, unproject
@@ -311,7 +311,9 @@ def run_offline_vo_streaming(
     the readback that follows it, so no sync of their own; 0 off CUDA), PnP's
     Gauss-Newton solves through its kernel (``gn_kernel_solves``) and its hypothesis
     banks through the bank kernel (``bank_kernel_calls``); the engine counts the steps,
-    the solves and the banks (``VOEngine.counts``).
+    the solves and the banks (``VOEngine.counts``); and ``OrbLikeExtractor``'s calls
+    replayed from its CUDA graph (``extract_graph_replays``) and run eagerly
+    (``extract_eager_calls``: every call off CUDA, the call before a capture on it).
     """
     if retain not in ("all", "sparse"):
         raise ValueError(f"retain must be 'all' or 'sparse', got {retain!r}")
@@ -323,6 +325,7 @@ def run_offline_vo_streaming(
         extractor = OrbLikeExtractor()
     Kd = to_device(np.asarray(K, np.float32), dev)
     engine = VOEngine(vo_config, device=dev)
+    extract0 = extraction_counts()
     timer = engine.replay_timer = (ReplayTimer() if stats is not None and dev.type == "cuda"
                                    else None)
 
@@ -535,6 +538,7 @@ def run_offline_vo_streaming(
         stats.update(queue_wait_s=queue_wait, sync_wait_s=sync_wait, engine_s=engine_s,
                      h2d_bytes=up.bytes + h2d_sparse, d2h_bytes=d2h_bytes, chunks=n_chunks,
                      **engine.counts(),
+                     **{k: v - extract0[k] for k, v in extraction_counts().items()},
                      engine_device_s=timer.seconds if timer is not None else 0.0)
 
     feats = Features(*(torch.cat([c[0][i] for c in feat_chunks]) for i in range(4)))

@@ -29,6 +29,18 @@ def brief_offsets(bits: int = BRIEF_BITS, seed: int = 8214) -> np.ndarray:
     return np.clip(pts, -_PATTERN_RADIUS, _PATTERN_RADIUS).astype(np.float32)
 
 
+# The sampling pattern on each device, by (bits, device): uploaded at a first call, so
+# that a call inside a CUDA-graph capture copies nothing from the host.
+_patterns: dict = {}
+
+
+def _offsets_on(bits: int, device: torch.device) -> torch.Tensor:
+    pattern = _patterns.get((bits, device))
+    if pattern is None:
+        pattern = _patterns[bits, device] = torch.from_numpy(brief_offsets(bits)).to(device)
+    return pattern
+
+
 def _orientation(patches: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Intensity-centroid orientation of (..., P, P) patches -> (cos, sin) (...,):
     theta = atan2(m01, m10) over the centred disk, as ORB."""
@@ -63,7 +75,7 @@ def oriented_brief_descriptors(gray: torch.Tensor, kp: torch.Tensor, valid: torc
         return oriented_brief_descriptors(gray[None], kp[None], valid[None], bits,
                                           blur_sigma)[0]
     B, K = kp.shape[:2]
-    offsets = torch.from_numpy(brief_offsets(bits)).to(gray.device)     # (bits, 2, 2)
+    offsets = _offsets_on(bits, gray.device)                            # (bits, 2, 2)
     smoothed = gaussian_blur(gray.to(torch.float32), blur_sigma)
     patches = _extract_patches(smoothed, kp, _PATCH_RADIUS)             # (B, K, P, P)
     cos_t, sin_t = (c[..., None, None] for c in _orientation(patches))

@@ -5,6 +5,10 @@ JAX package does (``.to(torch.bfloat16)`` rounds to nearest even, like XLA's con
 The packed words are int32 with the same bit pattern as the JAX package's uint32
 words: torch has no uint32 shifts on CUDA, so bit 31 lands in the sign bit, and the
 unpacking masks with ``& 1`` after each right shift, which is arithmetic on int32.
+
+``upright_brief_descriptors`` gives the bits of ``dense_packed_brief`` then
+``gather_brief_descriptors`` (which stay as the reference) but makes the compares at the
+keypoints only (``ops/brief.py``: a CUDA kernel on the card, plain torch elsewhere).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vo_tpu_torch.ops.brief import keypoint_brief
 from vo_tpu_torch.ops.image import gaussian_blur
 
 BRIEF_BITS = 256
@@ -62,8 +67,21 @@ def gather_brief_descriptors(packed: torch.Tensor, kp: torch.Tensor,
     return torch.where(valid[..., None], desc, 0.0)
 
 
+# The offsets table on each device, by (bits, device): uploaded at a first call, so that
+# a call inside a CUDA-graph capture copies nothing from the host.
+_tables: dict = {}
+
+
+def _offsets_on(bits: int, device: torch.device) -> torch.Tensor:
+    table = _tables.get((bits, device))
+    if table is None:
+        table = _tables[bits, device] = torch.from_numpy(dense_brief_offsets(bits)).to(device)
+    return table
+
+
 def upright_brief_descriptors(gray: torch.Tensor, kp: torch.Tensor, valid: torch.Tensor,
                               bits: int = BRIEF_BITS, blur_sigma: float = 2.0) -> torch.Tensor:
-    """(B, H, W) gray + (B, K, 2) kp -> (B, K, bits) +-1 bf16, dense-first."""
-    packed = dense_packed_brief(gray, bits=bits, blur_sigma=blur_sigma)
-    return gather_brief_descriptors(packed, kp, valid, bits=bits)
+    """(B, H, W) fp32 gray + (B, K, 2) fp32 kp -> (B, K, bits) +-1 bf16, 0 rows where not
+    valid; ``bits`` a multiple of 32. The compares of the dense path at the keypoints."""
+    return keypoint_brief(gaussian_blur(gray, blur_sigma), kp, valid,
+                          _offsets_on(bits, gray.device))
